@@ -1,0 +1,466 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (``fastqdedup_tpu_torch``) on one
+NVIDIA GPU: the quickest proof that the port still starts on the card.
+
+Run from the root of a checkout, with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line to stdout:
+
+1. ``device`` — the card's name and power limit;
+2. ``build`` — compiles the Hamming kernels (``csrc/hamming.cu``) with nvcc;
+3. ``kernel`` — each kernel against its plain PyTorch version on the card,
+   exact equality, at the main path's shapes plus edge cases (d = 0 and
+   2, widths not a multiple of 16, pad rows), with CUDA-event times;
+4. ``pipeline`` — ``deduplicate_cluster`` with its defaults (Hamming d=1,
+   directional, error rate 0.001) on 1M generated 100 bp reads; the
+   sha256 of the decompressed output must equal the JAX package's;
+5. ``route`` — further runs so that every kernel is launched by the
+   pipeline: a duplicate-dense input, a 12-base check length (UMI-style
+   keys, large pigeonhole buckets) and a small input whose length group
+   the tile sweep takes.  Where the measured-rate routing does not reach
+   a kernel, the phase forces it with the packages' rate knobs and says
+   so; a forced run must write the same bytes as the unforced one.
+
+Then one ``{"kernels": [...]}`` line (launch counts of phases 4-5, times
+and errors of phase 3), the ``nvidia-smi`` name/power-limit line, and the
+result line ``{"ok": true, "device": {...}}`` last.  Any failed check
+exits non-zero before the result line.  Without CUDA, or without the
+package beside this script, it exits 2 and prints no result.
+
+The expected sha256 values were computed with the JAX package on the CPU
+from byte-identical inputs: generate each input with
+``generate_fastq`` below (same arguments), run
+``fastqdedup_tpu.pipeline.deduplicate_cluster`` on it with the same
+check slices, and hash the gunzipped output.
+"""
+
+import contextlib
+import gzip
+import hashlib
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# sha256 of the decompressed output of deduplicate_cluster (defaults) per
+# input; computed with the JAX package on the CPU (see module docstring).
+EXPECTED_SHA256 = {
+    "default":
+        "42856e003e1d71bbd68164af0ac03390b57fea4349496557e5fb5bf51a6174fa",
+    "dense":
+        "0244e40af1f8594d01b6a67409eb439819cff2c1ee62186e82e1da548c5039cd",
+    "umi12":
+        "7eaa0bafe2c3a3948680b82cb98bc80f5e447a2bc4eb44abc75d15f001afca52",
+    "small":
+        "ae02e3b32737a9bffe37dd48c22227fe1e674b006841119235ee124bd0cb16b7",
+}
+
+# Generated files: (reads, dup_factor, error_rate), 100 bp, seed 7.
+# "default" is the JAX package's benchmark input (bench.py), "dense" its
+# deep-sequencing profile, "small" one length group small enough for the
+# tile sweep.
+FILES = {
+    "default": (1_000_000, 5, None),
+    "dense": (1_000_000, 30, 0.005),
+    "small": (1_500, 5, None),
+}
+# Runs: (file, check length).  "umi12" dedups the default file on its
+# first 12 bases, as UMI-keyed runs do.
+INPUTS = {
+    "default": ("default", None),
+    "dense": ("dense", None),
+    "umi12": ("default", "12"),
+    "small": ("small", None),
+}
+
+KERNEL_SOURCE = "fastqdedup_tpu_torch/csrc/hamming.cu"
+REPLACES = {
+    "bucket_within_packed": "fastqdedup_tpu/ops/pallas_hamming.py:335",
+    "within_tile_packed": "fastqdedup_tpu/ops/pallas_hamming.py:135",
+    "rowwise_within_packed": "fastqdedup_tpu/ops/pallas_hamming.py:434",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(message: str) -> None:
+    print(f"chip_smoke: FAILED: {message}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def generate_fastq(path: str, n_reads: int, read_len: int, umi_len: int,
+                   seed: int = 7, dup_factor: int = 5,
+                   error_rate: "float | None" = None) -> None:
+    """Copy of the JAX package's ``bench.generate_fastq``: a synthetic
+    duplicate-heavy FASTQ written as BGZF through the port's writer."""
+    from fastqdedup_tpu_torch.io.bgzf import BgzfWriter
+
+    rng = np.random.default_rng(seed)
+    n_molecules = max(n_reads // dup_factor, 1)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    molecules = bases[rng.integers(0, 4, size=(n_molecules, read_len),
+                                   dtype=np.uint8)]
+    digits = 9
+    head_len = 5 + digits + 1               # "@read" + id + "\n"
+    rec_len = head_len + read_len + 3 + read_len + 1
+    with BgzfWriter(path, compresslevel=1) as f:
+        step = 250_000
+        for start in range(0, n_reads, step):
+            stop = min(start + step, n_reads)
+            count = stop - start
+            picks = rng.integers(0, n_molecules, size=count)
+            seqs = molecules[picks]
+            if error_rate is None:
+                # Default profile: ~15% of reads get one substitution.
+                errored = np.flatnonzero(rng.random(count) < 0.15)
+                pos = rng.integers(0, read_len, size=len(errored))
+                seqs[errored, pos] = bases[
+                    rng.integers(0, 4, size=len(errored))]
+            else:
+                # Per-base substitution model (deep-sequencing profiles).
+                err = rng.random(size=seqs.shape) < error_rate
+                seqs = np.where(
+                    err, bases[rng.integers(0, 4, size=seqs.shape,
+                                            dtype=np.uint8)], seqs)
+            quals = (33 + rng.integers(
+                30, 41, size=(count, read_len),
+                dtype=np.int8)).astype(np.uint8)
+            block = np.empty((count, rec_len), dtype=np.uint8)
+            block[:, 0:5] = np.frombuffer(b"@read", dtype=np.uint8)
+            ids = np.arange(start, stop, dtype=np.int64)
+            for d in range(digits):
+                block[:, 5 + d] = 48 + (ids // 10 ** (digits - 1 - d)) % 10
+            block[:, head_len - 1] = 10
+            block[:, head_len:head_len + read_len] = seqs
+            block[:, head_len + read_len:head_len + read_len + 3] = \
+                np.frombuffer(b"\n+\n", dtype=np.uint8)
+            qstart = head_len + read_len + 3
+            block[:, qstart:qstart + read_len] = quals
+            block[:, -1] = 10
+            f.write(block.tobytes())
+
+
+def decompressed_sha256(path: str) -> str:
+    digest = hashlib.sha256()
+    with gzip.open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 22), b""):
+            digest.update(block)
+    return digest.hexdigest()
+
+
+# --------------------------------------------------------------------- #
+# Phase 3: kernels against their plain versions
+
+
+def cuda_ms(fn, reps: int = 7) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs, after two
+    warm-up runs."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bit_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest absolute difference of any output bit (0 when equal)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"shape/dtype {tuple(got.shape)}/{got.dtype} vs "
+             f"{tuple(want.shape)}/{want.dtype}")
+    if got.dtype == torch.bool:
+        return float((got != want).any())
+    return float(torch.bitwise_xor(got, want).any())
+
+
+def bucket_batch(rng, k: int, s: int, length: int, l_pad: int):
+    """[K, S, Lp] buckets as the pipeline builds them: near-duplicates of
+    one row per bucket (0-2 substitutions, symbols ACGTN), a random number
+    of 0xFF pad rows, 0xFF past the real width."""
+    rows = np.repeat(rng.integers(0, 5, (k, 1, length), dtype=np.uint8),
+                     s, axis=1)
+    kk, ss = np.indices((k, s))
+    for _ in range(2):
+        sel = rng.random((k, s)) < 0.5
+        pos = rng.integers(0, length, (k, s))
+        rows[kk[sel], ss[sel], pos[sel]] = rng.integers(
+            0, 5, int(sel.sum()), dtype=np.uint8)
+    batch = np.full((k, s, l_pad), 0xFF, dtype=np.uint8)
+    batch[:, :, :length] = rows
+    fill = rng.integers(2, s + 1, k)
+    batch[np.arange(s)[None, :] >= fill[:, None]] = 0xFF
+    return torch.from_numpy(batch)
+
+
+def tile_pair(rng, n: int, length: int, pad_rows: int):
+    a = rng.integers(0, 5, (n, length), dtype=np.uint8)
+    b = a[rng.permutation(n)].copy()
+    pos = rng.integers(0, length, n)
+    b[np.arange(n), pos] = rng.integers(0, 5, n, dtype=np.uint8)
+    if pad_rows:
+        a[-pad_rows:] = 0xFF
+        b[-pad_rows:] = 0xFF
+    return torch.from_numpy(a), torch.from_numpy(b)
+
+
+def rowwise_pair(rng, p: int, lanes: int):
+    a = rng.integers(0, 1 << 32, (p, lanes), dtype=np.uint64).astype(
+        np.uint32)
+    b = a.copy()
+    for _ in range(3):
+        rows = np.flatnonzero(rng.random(p) < 0.4)
+        lane = rng.integers(0, lanes, len(rows))
+        shift = 4 * rng.integers(0, 8, len(rows))
+        flip = rng.integers(1, 16, len(rows)).astype(np.uint64) << \
+            shift.astype(np.uint64)
+        b[rows, lane] ^= flip.astype(np.uint32)
+    return (torch.from_numpy(a.view(np.int32)),
+            torch.from_numpy(b.view(np.int32)))
+
+
+def check_kernels(dev) -> dict:
+    """Every kernel on the card against its plain version; returns, per
+    kernel, the main shape's times and the largest error seen."""
+    from fastqdedup_tpu_torch.ops import hamming_kernels as hk
+
+    rng = np.random.default_rng(2024)
+    summary = {}
+
+    def record(name, case, got, want, kernel_fn, plain_fn, main):
+        err = bit_err(got.cpu(), want.cpu())
+        ones = int(want.to(torch.uint8).cpu().numpy().view(np.uint8)
+                   .astype(np.uint64).sum()) if want.dtype == torch.bool \
+            else int(np.unpackbits(want.cpu().numpy()).sum())
+        line = {"phase": "kernel", "name": name, "case": case,
+                "max_abs_err": err, "true_outputs": ones}
+        if main:
+            line["ms"] = cuda_ms(kernel_fn)
+            line["plain_ms"] = cuda_ms(plain_fn)
+        emit(line)
+        if err != 0.0:
+            fail(f"{name} {case}: kernel disagrees with its plain version")
+        entry = summary.setdefault(name, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if main:
+            entry["ms"] = line["ms"]
+            entry["plain_ms"] = line["plain_ms"]
+
+    # Kernel 1: buckets.  Main path: d=1 on the 50-symbol segment
+    # complement of 100 bp keys (Lp 64), the three size classes at their
+    # batch sizes.
+    for s, k, length, d, main in ((128, 2048, 50, 1, True),
+                                  (512, 256, 50, 1, False),
+                                  (2048, 16, 50, 1, False),
+                                  (128, 256, 50, 0, False),
+                                  (128, 256, 50, 2, False),
+                                  (128, 256, 37, 1, False),
+                                  (128, 16, 2, 2, False)):
+        l_pad, a_pad = hk._pad_dims(length, 5)
+        batch = bucket_batch(rng, k, s, length, l_pad).to(dev)
+        got = hk.bucket_within_packed(batch, length, d, a_pad)
+        torch.cuda.synchronize()
+        want = hk.pairs_within_plain(batch, batch, length, d, a_pad)
+        record("bucket_within_packed",
+               f"S={s} K={k} L={length} Lp={l_pad} d={d}", got, want,
+               lambda: hk.bucket_within_packed(batch, length, d, a_pad),
+               lambda: hk.pairs_within_plain(batch, batch, length, d,
+                                             a_pad), main)
+        del batch, got, want
+
+    # Kernel 2: the 2048 x 2048 tile sweep at 100 bp keys.
+    for n, length, d, pad, main in ((2048, 100, 1, 0, True),
+                                    (2048, 100, 0, 300, False),
+                                    (256, 37, 2, 40, False)):
+        a, b = tile_pair(rng, n, length, pad)
+        a, b = a.to(dev), b.to(dev)
+        got = hk.within_tile_packed(a, b, 5, d)
+        torch.cuda.synchronize()
+        l_pad, a_pad = hk._pad_dims(length, 5)
+        pa = torch.nn.functional.pad(a, (0, l_pad - length), value=0xFF)
+        pb = torch.nn.functional.pad(b, (0, l_pad - length), value=0xFF)
+        want = hk.pairs_within_plain(pa[None], pb[None], length, d,
+                                     a_pad)[0]
+        record("within_tile_packed",
+               f"N=M={n} L={length} d={d} pad_rows={pad}", got, want,
+               lambda: hk.within_tile_packed(a, b, 5, d),
+               lambda: hk.pairs_within_plain(pa[None], pb[None], length,
+                                             d, a_pad), main)
+
+    # Kernel 3: pair lists at the verifier's batch (2^21 pairs of 13
+    # lanes: 100 bp keys, 8 symbols per lane).
+    for p, lanes, d, main in ((1 << 21, 13, 1, True), (1 << 16, 13, 0, False),
+                              (1 << 16, 7, 2, False)):
+        a, b = rowwise_pair(rng, p, lanes)
+        a, b = a.to(dev), b.to(dev)
+        got = hk.rowwise_within_packed(a, b, d)
+        torch.cuda.synchronize()
+        want = hk.rowwise_within_plain(a, b, d)
+        record("rowwise_within_packed", f"P={p} lanes={lanes} d={d}", got,
+               want, lambda: hk.rowwise_within_packed(a, b, d),
+               lambda: hk.rowwise_within_plain(a, b, d), main)
+    return summary
+
+
+# --------------------------------------------------------------------- #
+# Phases 4-5: the pipeline
+
+
+@contextlib.contextmanager
+def environment(overrides):
+    saved = {k: os.environ.get(k) for k in overrides}
+    os.environ.update(overrides)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_pipeline(workdir: str, name: str, src: str, n_reads: int,
+                 check_length, tag: str, overrides=None) -> dict:
+    from fastqdedup_tpu_torch.keys import length_string_to_slices
+    from fastqdedup_tpu_torch.ops.hamming_kernels import LAUNCHES
+    from fastqdedup_tpu_torch.pipeline import deduplicate_cluster
+
+    out = os.path.join(workdir, f"out_{tag}.fastq.gz")
+    slices = length_string_to_slices(check_length) if check_length else None
+    before = dict(LAUNCHES)
+    with environment(overrides or {}):
+        t0 = time.perf_counter()
+        deduplicate_cluster([src], [out], slices)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    sha = decompressed_sha256(out)
+    os.unlink(out)
+    expected = EXPECTED_SHA256[name]
+    line = {"phase": "pipeline" if name == "default" else "route",
+            "run": tag, "input": name, "reads": n_reads,
+            "seconds": seconds, "reads_per_s": n_reads / seconds,
+            "sha256": sha, "expected_sha256": expected,
+            "launches": launches}
+    if overrides:
+        line["forced"] = overrides
+    emit(line)
+    if sha != expected:
+        fail(f"{tag}: output sha256 {sha} != expected {expected}")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this "
+              "smoke run needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(HERE, "fastqdedup_tpu_torch")):
+        print("chip_smoke: run it from a checkout of the repository "
+              "(fastqdedup_tpu_torch/ not found beside it)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from fastqdedup_tpu_torch.ops import hamming_kernels as hk
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
+          "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    lib, log = hk.build_kernels()
+    emit({"phase": "build", "library": os.path.relpath(lib, HERE),
+          "seconds": time.perf_counter() - t0,
+          "log": [line for line in log.splitlines() if line.strip()]})
+
+    summary = check_kernels(dev)
+
+    os.environ["FASTQDEDUP_TORCH_DEVICE"] = "cuda"
+    workdir = tempfile.mkdtemp(
+        prefix="smoke_", dir=os.path.join(HERE, "fastqdedup_tpu_torch",
+                                          "build"))
+    try:
+        files = {}
+        for name, (n_reads, dup, err) in FILES.items():
+            files[name] = os.path.join(workdir, f"{name}.fastq.gz")
+            generate_fastq(files[name], n_reads, 100, 12, seed=7,
+                           dup_factor=dup, error_rate=err)
+
+        def run(name, tag, overrides=None):
+            file, check_length = INPUTS[name]
+            return run_pipeline(workdir, name, files[file], FILES[file][0],
+                                check_length, tag, overrides)
+
+        # Launch counts from here on are the main path's alone.
+        hk.reset_launches()
+        run("default", "default-first")
+        run("default", "default-repeat")
+        forced_runs = {
+            "rowwise_within_packed": ("dense", {
+                "FASTQDEDUP_DISPATCH_S": "1e-9",
+                "FASTQDEDUP_H2D_RATE": "1e15",
+                "FASTQDEDUP_HOST_RATE": "1.0"}),
+            "bucket_within_packed": ("umi12", {
+                "FASTQDEDUP_DISPATCH_S": "1e-9",
+                "FASTQDEDUP_H2D_RATE": "1e-9"}),
+            "within_tile_packed": ("small", {
+                "FASTQDEDUP_DEVICE_CUTOVER_S": "0"}),
+        }
+        for kernel, (name, overrides) in forced_runs.items():
+            launches = run(name, name)
+            if launches[kernel] == 0:
+                emit({"phase": "route", "note":
+                      f"measured-rate routing did not launch {kernel} on "
+                      f"input {name!r}; forcing it", "forced": overrides})
+                launches = run(name, f"{name}-forced", overrides)
+                if launches[kernel] == 0:
+                    fail(f"forced run of {name!r} did not launch {kernel}")
+        main_launches = dict(hk.LAUNCHES)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    for name, count in main_launches.items():
+        if count == 0:
+            fail(f"the pipeline never launched {name}")
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES[name], "launches": main_launches[name],
+         "max_abs_err": summary[name]["max_abs_err"],
+         "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"]}
+        for name in REPLACES]})
+    for line in smi:
+        print(line, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,161 @@
+"""End-to-end parity of the port's pipeline with the JAX package's.
+
+``deduplicate_cluster`` of ``fastqdedup_tpu_torch`` and of
+``fastqdedup_tpu`` run on the same generated FASTQ files; the outputs
+must be byte-identical (exact equality: the whole run is integer and
+byte work).  The port runs on the CPU device, where every kernel wrapper
+computes its plain PyTorch version.
+"""
+
+import gzip
+import os
+import random
+import subprocess
+import sys
+
+import pytest
+
+import fastqdedup_tpu.engine as jax_engine
+import fastqdedup_tpu_torch.engine as torch_engine
+from fastqdedup_tpu.dissect import CLUSTER_DISSECTION_METHODS
+from fastqdedup_tpu.keys import length_string_to_slices
+from fastqdedup_tpu.pipeline import deduplicate_cluster as jax_dedup
+from fastqdedup_tpu_torch.ops import hamming_kernels
+from fastqdedup_tpu_torch.pipeline import deduplicate_cluster as torch_dedup
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _cpu_device(monkeypatch):
+    monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", "cpu")
+
+
+def _write_fastq(path, records):
+    data = "".join(f"@{name}\n{seq}\n+\n{qual}\n"
+                   for name, seq, qual in records)
+    with gzip.open(path, "wb") as f:
+        f.write(data.encode())
+
+
+def _reads(rng, n, length, dup_rate=0.6, error_rate=0.02, suffix=""):
+    reads, molecules = [], []
+    for i in range(n):
+        if molecules and rng.random() < dup_rate:
+            seq = [c if rng.random() >= error_rate else rng.choice("ACGT")
+                   for c in rng.choice(molecules)]
+            seq = "".join(seq)
+        else:
+            seq = "".join(rng.choice("ACGT") for _ in range(length))
+            molecules.append(seq)
+        qual = "".join(chr(33 + rng.randrange(30, 40)) for _ in range(length))
+        if rng.random() < 0.05:
+            qual = chr(35) * length
+        reads.append((f"read{i}{suffix}", seq, qual))
+    return reads
+
+
+def _run_both(tmp_path, inputs, check_slices=None, max_distance=1,
+              method="directional"):
+    paths = []
+    for idx, records in enumerate(inputs):
+        path = str(tmp_path / f"in{idx}.fastq.gz")
+        _write_fastq(path, records)
+        paths.append(path)
+    outs = {}
+    for tag, dedup in (("jax", jax_dedup), ("torch", torch_dedup)):
+        outs[tag] = [str(tmp_path / f"{tag}{i}.fastq.gz")
+                     for i in range(len(paths))]
+        dedup(paths, outs[tag], check_slices, max_distance, 0.001,
+              CLUSTER_DISSECTION_METHODS[method], False, chunk_records=53)
+    for want, got in zip(outs["jax"], outs["torch"]):
+        with gzip.open(want, "rb") as fw, gzip.open(got, "rb") as fg:
+            want_bytes, got_bytes = fw.read(), fg.read()
+        assert got_bytes == want_bytes
+        assert got_bytes
+    return outs
+
+
+def test_directional_d1_byte_identical(tmp_path):
+    _run_both(tmp_path, [_reads(random.Random(42), 400, 20)])
+
+
+@pytest.mark.parametrize("method,d", [("directional", 1), ("adjacency", 2)])
+def test_forced_device_route_byte_identical(tmp_path, monkeypatch, method,
+                                            d):
+    """The host brute-force budget pinned low in both engines (as in
+    tests/test_pipeline.py's device-path parity test), so the length
+    group goes through the tile sweep instead of the host path."""
+    for engine in (jax_engine, torch_engine):
+        monkeypatch.setattr(engine, "_HOST_BYTE_OP_BUDGET", 1)
+        monkeypatch.setattr(engine, "HOST_LIMIT", 8)
+    hamming_kernels.reset_launches()
+    _run_both(tmp_path, [_reads(random.Random(46), 400, 20)], method=method,
+              max_distance=d)
+    # On the CPU no kernel launches: the plain versions ran.
+    assert not any(hamming_kernels.LAUNCHES.values())
+
+
+def test_paired_with_check_lengths_byte_identical(tmp_path):
+    rng = random.Random(44)
+    r1 = _reads(rng, 300, 24, suffix="/1")
+    r2 = [(name.replace("/1", "/2"),
+           "".join(rng.choice("ACGT") for _ in range(24)), qual)
+          for name, _, qual in r1]
+    _run_both(tmp_path, [r1, r2],
+              check_slices=length_string_to_slices("16,8"))
+
+
+def test_cli_runs_without_jax(tmp_path):
+    """The port's CLI in a fresh interpreter where ``import jax`` fails:
+    nothing on its path may need jax.  FASTQDEDUP_PROFILE makes it write
+    a torch.profiler trace."""
+    src = str(tmp_path / "in.fastq.gz")
+    _write_fastq(src, _reads(random.Random(5), 300, 20))
+    out = str(tmp_path / "out.fastq.gz")
+    script = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.argv = ['fastqdedup-tpu-torch', sys.argv[1], '-o', sys.argv[2]]"
+        "\n"
+        "from fastqdedup_tpu_torch.cli import main\n"
+        "main()\n"
+        "bad = [m for m in sys.modules if m == 'fastqdedup_tpu'\n"
+        "       or m.startswith('fastqdedup_tpu.') or m.startswith('jax.')]\n"
+        "assert not bad, bad\n")
+    trace_dir = tmp_path / "trace"
+    env = dict(os.environ, FASTQDEDUP_TORCH_DEVICE="cpu",
+               FASTQDEDUP_PROFILE=str(trace_dir),
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    proc = subprocess.run([sys.executable, "-c", script, src, out],
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "distinct reads" in proc.stderr
+    assert [p.name for p in trace_dir.iterdir()
+            if p.name.endswith(".trace.json")]
+    want = str(tmp_path / "want.fastq.gz")
+    jax_dedup([src], [want], None)
+    with gzip.open(want, "rb") as fw, gzip.open(out, "rb") as fg:
+        assert fg.read() == fw.read()
+
+
+def test_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    src = str(tmp_path / "in.fastq.gz")
+    _write_fastq(src, _reads(random.Random(6), 20, 12))
+    monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", "cuda")
+    with pytest.raises(RuntimeError, match="FASTQDEDUP_TORCH_DEVICE"):
+        torch_dedup([src], [str(tmp_path / "out.fastq.gz")], None)
+
+
+def test_device_quality_filter_not_ported(tmp_path, monkeypatch):
+    src = str(tmp_path / "in.fastq.gz")
+    _write_fastq(src, _reads(random.Random(7), 20, 12))
+    monkeypatch.setenv("FASTQDEDUP_DEVICE_QUALITY", "1")
+    with pytest.raises(NotImplementedError, match="phred"):
+        torch_dedup([src], [str(tmp_path / "out.fastq.gz")], None)
