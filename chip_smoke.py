@@ -9,19 +9,29 @@ Run from the root of a checkout, with no arguments::
 Phases, each printing one JSON line to stdout:
 
 1. ``device`` — the card's name and power limit;
-2. ``build`` — compiles the Hamming kernels (``csrc/hamming.cu``) with nvcc;
+2. ``build`` — compiles every kernel source (``csrc/*.cu``) with nvcc,
+   one process per source, into one library;
 3. ``kernel`` — each kernel against its plain PyTorch version on the card,
    exact equality, at the main path's shapes plus edge cases (d = 0 and
-   2, widths not a multiple of 16, pad rows), with CUDA-event times;
+   2, widths not a multiple of 16, pad rows; for the edit kernel d = 0,
+   2, 3 and 6, empty strings, length gaps above d, lengths 99/100/101,
+   arbitrary pad bytes, and the indexed entry), with CUDA-event times;
 4. ``pipeline`` — ``deduplicate_cluster`` with its defaults (Hamming d=1,
    directional, error rate 0.001) on 1M generated 100 bp reads; the
    sha256 of the decompressed output must equal the JAX package's;
 5. ``route`` — further runs so that every kernel is launched by the
    pipeline: a duplicate-dense input, a 12-base check length (UMI-style
-   keys, large pigeonhole buckets) and a small input whose length group
-   the tile sweep takes.  Where the measured-rate routing does not reach
-   a kernel, the phase forces it with the packages' rate knobs and says
-   so; a forced run must write the same bytes as the unforced one.
+   keys, large pigeonhole buckets), a small input whose length group
+   the tile sweep takes, and the Levenshtein path (``--edit``) on the
+   default input and on an input with indels.  Where the measured-rate
+   routing does not reach a kernel, the phase forces it with the
+   packages' rate knobs and says so; a forced run must write the same
+   bytes as the unforced one.  Launch counts are set to 0 before the
+   Hamming runs and again before the edit runs, and read after each;
+6. ``api`` — the ``Trie`` facade in Levenshtein mode (membership queries
+   and ``pop_all_clusters`` over 2,000 reads with indels) on the card and
+   on the CPU device: equal answers, and the card's run, counted from 0,
+   launches the edit kernel.
 
 Then one ``{"kernels": [...]}`` line (launch counts of phases 4-5, times
 and errors of phase 3), the ``nvidia-smi`` name/power-limit line, and the
@@ -33,7 +43,9 @@ The expected sha256 values were computed with the JAX package on the CPU
 from byte-identical inputs: generate each input with
 ``generate_fastq`` below (same arguments), run
 ``fastqdedup_tpu.pipeline.deduplicate_cluster`` on it with the same
-check slices, and hash the gunzipped output.
+check slices (and ``use_edit_distance=True`` for the edit runs), and hash
+the gunzipped output.  The default input has no indels, so its ``--edit``
+output equals its Hamming output; the indel input's does not.
 """
 
 import contextlib
@@ -53,8 +65,9 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# sha256 of the decompressed output of deduplicate_cluster (defaults) per
-# input; computed with the JAX package on the CPU (see module docstring).
+# sha256 of the decompressed output of deduplicate_cluster (defaults, and
+# Levenshtein for "edit" and "indel") per run; computed with the JAX
+# package on the CPU (see module docstring).
 EXPECTED_SHA256 = {
     "default":
         "42856e003e1d71bbd68164af0ac03390b57fea4349496557e5fb5bf51a6174fa",
@@ -64,31 +77,46 @@ EXPECTED_SHA256 = {
         "7eaa0bafe2c3a3948680b82cb98bc80f5e447a2bc4eb44abc75d15f001afca52",
     "small":
         "ae02e3b32737a9bffe37dd48c22227fe1e674b006841119235ee124bd0cb16b7",
+    "edit":
+        "42856e003e1d71bbd68164af0ac03390b57fea4349496557e5fb5bf51a6174fa",
+    "indel":
+        "12ffb9c23697060591d458f4545556240c7cfba3ea8e762cc6602e582d9cad22",
 }
 
-# Generated files: (reads, dup_factor, error_rate), 100 bp, seed 7.
-# "default" is the JAX package's benchmark input (bench.py), "dense" its
-# deep-sequencing profile, "small" one length group small enough for the
-# tile sweep.
+# Generated files: (reads, dup_factor, error_rate, indel_rate), 100 bp,
+# seed 7.  "default" is the JAX package's benchmark input (bench.py),
+# "dense" its deep-sequencing profile, "small" one length group small
+# enough for the tile sweep, "indel" the default profile with one base
+# deleted or inserted in 10% of reads (lengths 99-101).
 FILES = {
-    "default": (1_000_000, 5, None),
-    "dense": (1_000_000, 30, 0.005),
-    "small": (1_500, 5, None),
+    "default": (1_000_000, 5, None, 0.0),
+    "dense": (1_000_000, 30, 0.005, 0.0),
+    "small": (1_500, 5, None, 0.0),
+    "indel": (1_000_000, 5, None, 0.1),
 }
-# Runs: (file, check length).  "umi12" dedups the default file on its
-# first 12 bases, as UMI-keyed runs do.
+# Runs: (file, check length, Levenshtein).  "umi12" dedups the default
+# file on its first 12 bases, as UMI-keyed runs do; "edit" is bench.py's
+# --edit run of the default file.
 INPUTS = {
-    "default": ("default", None),
-    "dense": ("dense", None),
-    "umi12": ("default", "12"),
-    "small": ("small", None),
+    "default": ("default", None, False),
+    "dense": ("dense", None, False),
+    "umi12": ("default", "12", False),
+    "small": ("small", None, False),
+    "edit": ("default", None, True),
+    "indel": ("indel", None, True),
 }
 
-KERNEL_SOURCE = "fastqdedup_tpu_torch/csrc/hamming.cu"
-REPLACES = {
-    "bucket_within_packed": "fastqdedup_tpu/ops/pallas_hamming.py:335",
-    "within_tile_packed": "fastqdedup_tpu/ops/pallas_hamming.py:135",
-    "rowwise_within_packed": "fastqdedup_tpu/ops/pallas_hamming.py:434",
+# Kernel: (source, the TPU kernel it replaces).
+KERNELS = {
+    "bucket_within_packed": ("fastqdedup_tpu_torch/csrc/hamming.cu",
+                             "fastqdedup_tpu/ops/pallas_hamming.py:335"),
+    "within_tile_packed": ("fastqdedup_tpu_torch/csrc/hamming.cu",
+                           "fastqdedup_tpu/ops/pallas_hamming.py:135"),
+    "rowwise_within_packed": ("fastqdedup_tpu_torch/csrc/hamming.cu",
+                              "fastqdedup_tpu/ops/pallas_hamming.py:434"),
+    "banded_within_edit_distance": (
+        "fastqdedup_tpu_torch/csrc/edit.cu",
+        "fastqdedup_tpu/ops/pallas_edit.py:106"),
 }
 
 
@@ -101,11 +129,41 @@ def fail(message: str) -> None:
     sys.exit(1)
 
 
+def apply_indels(rng, seqs: np.ndarray, rate: float, bases: np.ndarray):
+    """uint8 [n, L+1] rows and int64 lengths: ``rate`` of the rows of
+    ``seqs`` [n, L] lose one base or gain one random base at a random
+    position (half each); the others keep length L."""
+    n, length = seqs.shape
+    hit = np.flatnonzero(rng.random(n) < rate)
+    insert = rng.random(len(hit)) < 0.5
+    pos = rng.integers(0, length, len(hit))
+    new_base = bases[rng.integers(0, 4, len(hit))]
+    out = np.zeros((n, length + 1), dtype=np.uint8)
+    out[:, :length] = seqs
+    lengths = np.full(n, length, dtype=np.int64)
+    cols = np.arange(length + 1)
+    # Deletion: column c takes c + 1 from pos on.  Insertion: c - 1 past
+    # pos, the new base at pos.
+    src = np.where(cols[None, :] < pos[:, None], cols[None, :],
+                   np.where(insert[:, None], cols[None, :] - 1,
+                            cols[None, :] + 1))
+    src = src.clip(0, length - 1)
+    moved = np.take_along_axis(seqs[hit], src, axis=1)
+    moved[insert, pos[insert]] = new_base[insert]
+    out[hit] = moved
+    lengths[hit] = np.where(insert, length + 1, length - 1)
+    return out, lengths
+
+
 def generate_fastq(path: str, n_reads: int, read_len: int, umi_len: int,
                    seed: int = 7, dup_factor: int = 5,
-                   error_rate: "float | None" = None) -> None:
+                   error_rate: "float | None" = None,
+                   indel_rate: float = 0.0) -> None:
     """Copy of the JAX package's ``bench.generate_fastq``: a synthetic
-    duplicate-heavy FASTQ written as BGZF through the port's writer."""
+    duplicate-heavy FASTQ written as BGZF through the port's writer.
+    ``indel_rate`` > 0 adds one deletion or insertion to that share of
+    the reads after the substitutions (``apply_indels``); at 0 the bytes
+    are ``bench.generate_fastq``'s."""
     from fastqdedup_tpu_torch.io.bgzf import BgzfWriter
 
     rng = np.random.default_rng(seed)
@@ -135,6 +193,10 @@ def generate_fastq(path: str, n_reads: int, read_len: int, umi_len: int,
                 seqs = np.where(
                     err, bases[rng.integers(0, 4, size=seqs.shape,
                                             dtype=np.uint8)], seqs)
+            if indel_rate:
+                f.write(indel_block(rng, seqs, start, indel_rate, bases,
+                                    digits))
+                continue
             quals = (33 + rng.integers(
                 30, 41, size=(count, read_len),
                 dtype=np.int8)).astype(np.uint8)
@@ -151,6 +213,35 @@ def generate_fastq(path: str, n_reads: int, read_len: int, umi_len: int,
             block[:, qstart:qstart + read_len] = quals
             block[:, -1] = 10
             f.write(block.tobytes())
+
+
+def indel_block(rng, seqs: np.ndarray, start: int, rate: float,
+                bases: np.ndarray, digits: int) -> bytes:
+    """FASTQ bytes of ``seqs`` after ``apply_indels``: records of
+    variable length, laid out in one [n, widest] array and flattened
+    through a mask of the bytes each record really has."""
+    count, read_len = seqs.shape
+    seqs, lengths = apply_indels(rng, seqs, rate, bases)
+    width = read_len + 1
+    quals = (33 + rng.integers(30, 41, size=(count, width),
+                               dtype=np.int8)).astype(np.uint8)
+    head_len = 5 + digits + 1
+    q0 = head_len + width + 3
+    full = np.empty((count, q0 + width + 1), dtype=np.uint8)
+    full[:, 0:5] = np.frombuffer(b"@read", dtype=np.uint8)
+    ids = np.arange(start, start + count, dtype=np.int64)
+    for d in range(digits):
+        full[:, 5 + d] = 48 + (ids // 10 ** (digits - 1 - d)) % 10
+    full[:, head_len - 1] = 10
+    full[:, head_len:head_len + width] = seqs
+    full[:, head_len + width:q0] = np.frombuffer(b"\n+\n", dtype=np.uint8)
+    full[:, q0:q0 + width] = quals
+    full[:, -1] = 10
+    keep = np.ones(full.shape, dtype=bool)
+    short = np.arange(width)[None, :] >= lengths[:, None]
+    keep[:, head_len:head_len + width] = ~short
+    keep[:, q0:q0 + width] = ~short
+    return full[keep].tobytes()
 
 
 def decompressed_sha256(path: str) -> str:
@@ -238,22 +329,49 @@ def rowwise_pair(rng, p: int, lanes: int):
             torch.from_numpy(b.view(np.int32)))
 
 
+def edit_pairs(rng, p: int, d: int, l_pad: int = 112, gap=None):
+    """uint8 [P, Lp] read pairs as edit verification meets them: 100 bp
+    reads of lengths 99/100/101, partners with substitutions and a share
+    shifted by one base (an indel), length gaps up to ``gap`` (d + 2 by
+    default), empty strings, and arbitrary bytes past every length."""
+    gap = d + 2 if gap is None else gap
+    a = rng.integers(0, 256, (p, l_pad), dtype=np.uint8)
+    b = rng.integers(0, 256, (p, l_pad), dtype=np.uint8)
+    a[:, :101] = rng.integers(0, 5, (p, 101), dtype=np.uint8)
+    b[:, :101] = a[:, :101]
+    shift = rng.random(p) < 0.3
+    b[shift, 1:101] = a[shift, :100]
+    for _ in range(d + 1):
+        sel = np.flatnonzero(rng.random(p) < 0.4)
+        b[sel, rng.integers(0, 101, len(sel))] = rng.integers(
+            0, 5, len(sel), dtype=np.uint8)
+    la = rng.integers(99, 102, p).astype(np.int32)
+    lb = (la + rng.integers(-gap, gap + 1, p)).clip(0, l_pad).astype(
+        np.int32)
+    la[::97] = 0
+    lb[::89] = 0
+    return (torch.from_numpy(a), torch.from_numpy(la), torch.from_numpy(b),
+            torch.from_numpy(lb))
+
+
 def check_kernels(dev) -> dict:
     """Every kernel on the card against its plain version; returns, per
     kernel, the main shape's times and the largest error seen."""
+    from fastqdedup_tpu_torch.ops import edit_kernels as ek
     from fastqdedup_tpu_torch.ops import hamming_kernels as hk
 
     rng = np.random.default_rng(2024)
     summary = {}
 
-    def record(name, case, got, want, kernel_fn, plain_fn, main):
+    def record(name, case, got, want, kernel_fn, plain_fn, main,
+               timed=None):
         err = bit_err(got.cpu(), want.cpu())
         ones = int(want.to(torch.uint8).cpu().numpy().view(np.uint8)
                    .astype(np.uint64).sum()) if want.dtype == torch.bool \
             else int(np.unpackbits(want.cpu().numpy()).sum())
         line = {"phase": "kernel", "name": name, "case": case,
                 "max_abs_err": err, "true_outputs": ones}
-        if main:
+        if main if timed is None else timed:
             line["ms"] = cuda_ms(kernel_fn)
             line["plain_ms"] = cuda_ms(plain_fn)
         emit(line)
@@ -318,6 +436,58 @@ def check_kernels(dev) -> dict:
         record("rowwise_within_packed", f"P={p} lanes={lanes} d={d}", got,
                want, lambda: hk.rowwise_within_packed(a, b, d),
                lambda: hk.rowwise_within_plain(a, b, d), main)
+
+    # Kernel 4: one verification batch of the edit path (2^16 pairs of
+    # 100 bp keys padded to 112), d = 1, through both entry points; then
+    # d = 0, 2, 3 and 6 (the run-time band width) and extreme lengths.
+    name = "banded_within_edit_distance"
+    p = 1 << 16
+    for d in (1, 0, 2, 3, 6):
+        a, la, b, lb = (t.to(dev) for t in edit_pairs(rng, p, d))
+        got = ek.banded_within_edit_distance(a, la, b, lb, d)
+        torch.cuda.synchronize()
+        want = ek.banded_within_plain(a, la, b, lb, d)
+        record(name, f"P={p} Lp=112 lengths 0/99-101 d={d}", got, want,
+               lambda: ek.banded_within_edit_distance(a, la, b, lb, d),
+               lambda: ek.banded_within_plain(a, la, b, lb, d), False,
+               timed=d == 1)
+    for d in (1, 6):
+        # Lengths anywhere in [0, Lp]: most gaps exceed d.
+        a, _, b, _ = edit_pairs(rng, 8192, d)
+        la = torch.from_numpy(rng.integers(0, 113, 8192).astype(np.int32))
+        lb = (la + torch.from_numpy(rng.integers(-8, 9, 8192).astype(
+            np.int32))).clamp(0, 112)
+        a, la, b, lb = a.to(dev), la.to(dev), b.to(dev), lb.to(dev)
+        got = ek.banded_within_edit_distance(a, la, b, lb, d)
+        torch.cuda.synchronize()
+        record(name, f"P=8192 Lp=112 lengths 0-112 d={d}", got,
+               ek.banded_within_plain(a, la, b, lb, d), None, None, False)
+    # The path's launch: index pairs into a resident key matrix of
+    # 400k keys (about the indel input's unique keys), gathered in the
+    # kernel.  Keys 2k and 2k + 1 are a near-duplicate pair, lengths at
+    # most one apart, so nearly every pair runs the whole DP; a quarter
+    # of the candidates pair random keys.
+    a, la, b, lb = edit_pairs(rng, 200_000, 1, gap=1)
+    keys = torch.stack([a, b], dim=1).reshape(400_000, 112).to(dev)
+    lens = torch.stack([la, lb], dim=1).reshape(400_000).to(dev)
+    ci = 2 * rng.integers(0, 200_000, p)
+    cj = ci + 1
+    far = rng.random(p) < 0.25
+    cj[far] = rng.integers(0, 400_000, int(far.sum()))
+    ci = torch.from_numpy(ci.astype(np.int32)).to(dev)
+    cj = torch.from_numpy(cj.astype(np.int32)).to(dev)
+    got = ek.banded_within_edit_distance_indexed(keys, lens, ci, cj, 1)
+    torch.cuda.synchronize()
+
+    def gathered_plain():
+        return ek.banded_within_plain(keys[ci.long()], lens[ci.long()],
+                                      keys[cj.long()], lens[cj.long()], 1)
+
+    record(name, f"indexed: P={p} into n=400000 keys Lp=112 d=1", got,
+           gathered_plain(),
+           lambda: ek.banded_within_edit_distance_indexed(keys, lens, ci,
+                                                          cj, 1),
+           gathered_plain, True)
     return summary
 
 
@@ -339,26 +509,41 @@ def environment(overrides):
                 os.environ[k] = v
 
 
+def launch_counts() -> dict:
+    """Every kernel's launch count, by name."""
+    from fastqdedup_tpu_torch.ops import edit_kernels, hamming_kernels
+
+    return {**hamming_kernels.LAUNCHES, **edit_kernels.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    from fastqdedup_tpu_torch.ops import edit_kernels, hamming_kernels
+
+    hamming_kernels.reset_launches()
+    edit_kernels.reset_launches()
+
+
 def run_pipeline(workdir: str, name: str, src: str, n_reads: int,
-                 check_length, tag: str, overrides=None) -> dict:
+                 check_length, edit: bool, tag: str,
+                 overrides=None) -> dict:
     from fastqdedup_tpu_torch.keys import length_string_to_slices
-    from fastqdedup_tpu_torch.ops.hamming_kernels import LAUNCHES
     from fastqdedup_tpu_torch.pipeline import deduplicate_cluster
 
     out = os.path.join(workdir, f"out_{tag}.fastq.gz")
     slices = length_string_to_slices(check_length) if check_length else None
-    before = dict(LAUNCHES)
+    before = launch_counts()
     with environment(overrides or {}):
         t0 = time.perf_counter()
-        deduplicate_cluster([src], [out], slices)
+        deduplicate_cluster([src], [out], slices, use_edit_distance=edit)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    after = launch_counts()
+    launches = {k: after[k] - before[k] for k in after}
     sha = decompressed_sha256(out)
     os.unlink(out)
     expected = EXPECTED_SHA256[name]
     line = {"phase": "pipeline" if name == "default" else "route",
-            "run": tag, "input": name, "reads": n_reads,
+            "run": tag, "input": name, "reads": n_reads, "edit": edit,
             "seconds": seconds, "reads_per_s": n_reads / seconds,
             "sha256": sha, "expected_sha256": expected,
             "launches": launches}
@@ -368,6 +553,51 @@ def run_pipeline(workdir: str, name: str, src: str, n_reads: int,
     if sha != expected:
         fail(f"{tag}: output sha256 {sha} != expected {expected}")
     return launches
+
+
+def check_trie_api() -> dict:
+    """The ``Trie`` facade in Levenshtein mode above the engine's host
+    limit, on the card and on the CPU device: the same membership answers
+    and clusters.  Launch counts are set to 0 before the card's run and
+    read after it; that run must launch the edit kernel."""
+    from fastqdedup_tpu_torch import Trie
+
+    rng = np.random.default_rng(11)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    molecules = bases[rng.integers(0, 4, (400, 60))]
+    seqs = molecules[rng.integers(0, 400, 2_000)]
+    hit = np.flatnonzero(rng.random(2_000) < 0.3)
+    seqs[hit, rng.integers(0, 60, len(hit))] = bases[
+        rng.integers(0, 4, len(hit))]
+    rows, lengths = apply_indels(rng, seqs, 0.3, bases)
+    reads = [row[:n].tobytes().decode() for row, n in zip(rows, lengths)]
+    probes, probe_lengths = apply_indels(rng, molecules[:80], 1.0, bases)
+    queries = [row[:n].tobytes().decode()
+               for row, n in zip(probes, probe_lengths)]
+    queries += ["".join(rng.choice(list("ACGT"), 60)) for _ in range(20)]
+    answers, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        with environment({"FASTQDEDUP_TORCH_DEVICE": dev}):
+            trie = Trie()
+            for read in reads:
+                trie.add_sequence(read)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            found = [trie.contains_sequence(q, 1, True) for q in queries]
+            clusters = {frozenset(c) for c in trie.pop_all_clusters(1, True)}
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts[dev] = launch_counts()
+        answers[dev] = (found, clusters)
+        emit({"phase": "api", "device": dev, "reads": len(reads),
+              "queries": len(queries), "found": sum(found),
+              "clusters": len(clusters), "seconds": seconds,
+              "launches": counts[dev]})
+    if answers["cuda"] != answers["cpu"]:
+        fail("Trie in edit mode: the card's answers differ from the CPU's")
+    if counts["cuda"]["banded_within_edit_distance"] == 0:
+        fail("Trie in edit mode did not launch banded_within_edit_distance")
+    return counts["cuda"]
 
 
 def main() -> int:
@@ -381,7 +611,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from fastqdedup_tpu_torch.ops import hamming_kernels as hk
+    from fastqdedup_tpu_torch.ops import kernel_lib
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -395,7 +625,7 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    lib, log = hk.build_kernels()
+    lib, log = kernel_lib.build_kernels()
     emit({"phase": "build", "library": os.path.relpath(lib, HERE),
           "seconds": time.perf_counter() - t0,
           "log": [line for line in log.splitlines() if line.strip()]})
@@ -403,37 +633,27 @@ def main() -> int:
     summary = check_kernels(dev)
 
     os.environ["FASTQDEDUP_TORCH_DEVICE"] = "cuda"
+    from fastqdedup_tpu_torch.ops.bucket import measured_h2d_rate
+
+    # The rate the routes weigh copies with; edit mode verifies on the
+    # host instead of the card only below 200e6 B/s.
+    emit({"phase": "route", "measured_h2d_bytes_per_s": measured_h2d_rate()})
     workdir = tempfile.mkdtemp(
         prefix="smoke_", dir=os.path.join(HERE, "fastqdedup_tpu_torch",
                                           "build"))
     try:
         files = {}
-        for name, (n_reads, dup, err) in FILES.items():
+        for name, (n_reads, dup, err, indel) in FILES.items():
             files[name] = os.path.join(workdir, f"{name}.fastq.gz")
             generate_fastq(files[name], n_reads, 100, 12, seed=7,
-                           dup_factor=dup, error_rate=err)
+                           dup_factor=dup, error_rate=err, indel_rate=indel)
 
         def run(name, tag, overrides=None):
-            file, check_length = INPUTS[name]
+            file, check_length, edit = INPUTS[name]
             return run_pipeline(workdir, name, files[file], FILES[file][0],
-                                check_length, tag, overrides)
+                                check_length, edit, tag, overrides)
 
-        # Launch counts from here on are the main path's alone.
-        hk.reset_launches()
-        run("default", "default-first")
-        run("default", "default-repeat")
-        forced_runs = {
-            "rowwise_within_packed": ("dense", {
-                "FASTQDEDUP_DISPATCH_S": "1e-9",
-                "FASTQDEDUP_H2D_RATE": "1e15",
-                "FASTQDEDUP_HOST_RATE": "1.0"}),
-            "bucket_within_packed": ("umi12", {
-                "FASTQDEDUP_DISPATCH_S": "1e-9",
-                "FASTQDEDUP_H2D_RATE": "1e-9"}),
-            "within_tile_packed": ("small", {
-                "FASTQDEDUP_DEVICE_CUTOVER_S": "0"}),
-        }
-        for kernel, (name, overrides) in forced_runs.items():
+        def run_until_launched(kernel, name, overrides):
             launches = run(name, name)
             if launches[kernel] == 0:
                 emit({"phase": "route", "note":
@@ -442,19 +662,52 @@ def main() -> int:
                 launches = run(name, f"{name}-forced", overrides)
                 if launches[kernel] == 0:
                     fail(f"forced run of {name!r} did not launch {kernel}")
-        main_launches = dict(hk.LAUNCHES)
+
+        # The Hamming path: counts from 0, read after its runs.
+        reset_launch_counts()
+        run("default", "default-first")
+        run("default", "default-repeat")
+        forced_runs = (
+            ("rowwise_within_packed", "dense", {
+                "FASTQDEDUP_DISPATCH_S": "1e-9",
+                "FASTQDEDUP_H2D_RATE": "1e15",
+                "FASTQDEDUP_HOST_RATE": "1.0"}),
+            ("bucket_within_packed", "umi12", {
+                "FASTQDEDUP_DISPATCH_S": "1e-9",
+                "FASTQDEDUP_H2D_RATE": "1e-9"}),
+            ("within_tile_packed", "small", {
+                "FASTQDEDUP_DEVICE_CUTOVER_S": "0"}),
+        )
+        for kernel, name, overrides in forced_runs:
+            run_until_launched(kernel, name, overrides)
+        hamming_launches = launch_counts()
+        # The Levenshtein path: counts from 0 again.  A fast wire keeps
+        # the key matrix on the card; the knob forces that route only
+        # where the measured rate did not.
+        reset_launch_counts()
+        for name in ("edit", "indel"):
+            run_until_launched("banded_within_edit_distance", name,
+                               {"FASTQDEDUP_H2D_RATE": "1e15"})
+        edit_launches = launch_counts()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    # The Trie API: a second entry point of the Levenshtein path, with
+    # counts of its own.
+    check_trie_api()
 
-    for name, count in main_launches.items():
+    path_launches = {name: (edit_launches if name ==
+                            "banded_within_edit_distance"
+                            else hamming_launches)[name]
+                     for name in KERNELS}
+    for name, count in path_launches.items():
         if count == 0:
             fail(f"the pipeline never launched {name}")
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES[name], "launches": main_launches[name],
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": path_launches[name],
          "max_abs_err": summary[name]["max_abs_err"],
          "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"]}
-        for name in REPLACES]})
+        for name, (source, replaces) in KERNELS.items()]})
     for line in smi:
         print(line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

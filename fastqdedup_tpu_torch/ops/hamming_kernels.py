@@ -23,18 +23,15 @@ tests run it against the Pallas kernels); given a CUDA tensor it
 launches the kernel or raises — it never falls back.  ``LAUNCHES``
 counts kernel launches per wrapper.
 
-The kernel library is compiled with ``nvcc`` from the package's source
-on first use (``build_kernels``), into ``fastqdedup_tpu_torch/build/``.
+The kernel library (every ``csrc/*.cu``) is compiled with ``nvcc`` on
+first use, into ``fastqdedup_tpu_torch/build/`` (see :mod:`.kernel_lib`).
 """
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from typing import Dict, Tuple
 
 import torch
+
+from .kernel_lib import check_cuda, check_status, library
 
 # Rows of the padded pair lists callers hand the rowwise kernel come in
 # multiples of this (the JAX package's block size; the CUDA kernel itself
@@ -54,12 +51,6 @@ LAUNCHES: Dict[str, int] = {
     "rowwise_within_packed": 0,
 }
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "hamming.cu")
-_LIB_PATH = os.path.join(_PKG, "build", "libfqd_hamming.so")
-_lib = None
-
-
 def reset_launches() -> None:
     """Set every count in ``LAUNCHES`` to 0."""
     for name in LAUNCHES:
@@ -78,94 +69,6 @@ def _pad_dims(length: int, alphabet_size: int) -> Tuple[int, int]:
     a_pad = min(a_pad, 255)
     l_pad = max(-(-length // 16) * 16, 16)
     return l_pad, a_pad
-
-
-# --------------------------------------------------------------------- #
-# Build and bind
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME:
-        path = os.path.join(CUDA_HOME, "bin", "nvcc")
-        if os.path.exists(path):
-            return path
-    path = shutil.which("nvcc")
-    if path is None:
-        raise RuntimeError("nvcc not found: the Hamming kernels need the "
-                           "CUDA toolkit to build")
-    return path
-
-
-def build_kernels() -> Tuple[str, str]:
-    """Compile ``csrc/hamming.cu`` unless the built library matches the
-    source's sha256; returns (library path, compiler log).  The library is
-    written to a temporary name and moved into place atomically."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()
-    stamp = _LIB_PATH + ".sha256"
-    if os.path.exists(_LIB_PATH) and os.path.exists(stamp):
-        with open(stamp) as f:
-            if f.read().strip() == digest:
-                return _LIB_PATH, ""
-    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp, _SRC]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, _LIB_PATH)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    with open(stamp + f".{os.getpid()}.tmp", "w") as f:
-        f.write(digest)
-    os.replace(stamp + f".{os.getpid()}.tmp", stamp)
-    return _LIB_PATH, proc.stdout + proc.stderr
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        path, _ = build_kernels()
-        lib = ctypes.CDLL(path)
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        i64 = ctypes.c_int64
-        lib.fqd_pairs_within_packed.argtypes = [
-            p, p, p, i, i, i, i, i64, i64, i, i, i, p]
-        lib.fqd_pairs_within_packed.restype = i
-        lib.fqd_rowwise_within_packed.argtypes = [p, p, p, i64, i, i, p]
-        lib.fqd_rowwise_within_packed.restype = i
-        lib.fqd_error_string.argtypes = [i]
-        lib.fqd_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-def _check_status(name: str, status: int) -> None:
-    if status != 0:
-        message = _library().fqd_error_string(status).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error "
-                           f"{status} ({message})")
-
-
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: expected CPU or CUDA tensors, got "
-                             f"{t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-        if t.data_ptr() % 4:
-            raise ValueError(f"{name}: tensor data must be 4-byte aligned")
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError(f"{name}: tensors on different devices")
 
 
 # --------------------------------------------------------------------- #
@@ -215,7 +118,7 @@ def pairs_within_plain(a: torch.Tensor, b: torch.Tensor, length: int,
 def _pairs_within_launch(name: str, a: torch.Tensor, b: torch.Tensor,
                          length: int, max_distance: int,
                          alphabet_pad: int) -> torch.Tensor:
-    _check_cuda(name, a, b)
+    check_cuda(name, a, b)
     if a.dtype != torch.uint8 or b.dtype != torch.uint8:
         raise ValueError(f"{name}: expected uint8 rows")
     batch, n, l_pad = a.shape
@@ -232,14 +135,14 @@ def _pairs_within_launch(name: str, a: torch.Tensor, b: torch.Tensor,
     out = torch.empty((batch, n, m // 8), dtype=torch.uint8, device=a.device)
     if out.numel() == 0:
         return out
-    lib = _library()
+    lib = library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         status = lib.fqd_pairs_within_packed(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, n, m, l_pad,
             n * l_pad, m * l_pad, int(length), int(max_distance),
             int(alphabet_pad), stream)
-    _check_status(name, status)
+    check_status(name, status)
     LAUNCHES[name] += 1
     return out
 
@@ -314,18 +217,18 @@ def rowwise_within_packed(a: torch.Tensor, b: torch.Tensor,
     if a.device.type == "cpu":
         return rowwise_within_plain(a, b, max_distance)
     name = "rowwise_within_packed"
-    _check_cuda(name, a, b)
+    check_cuda(name, a, b)
     if a.dtype != torch.int32 or b.dtype != torch.int32 \
             or a.shape != b.shape or a.dim() != 2:
         raise ValueError(f"{name}: expected two int32 [P, lanes] tensors")
     p, lanes = a.shape
     out = torch.empty((p, 1), dtype=torch.bool, device=a.device)
-    lib = _library()
+    lib = library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         status = lib.fqd_rowwise_within_packed(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), p, lanes,
             int(max_distance), stream)
-    _check_status(name, status)
+    check_status(name, status)
     LAUNCHES[name] += 1
     return out

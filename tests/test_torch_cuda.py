@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from fastqdedup_tpu_torch.ops import edit_kernels as ek
 from fastqdedup_tpu_torch.ops import hamming_kernels as hk
 
 pytestmark = pytest.mark.cuda
@@ -124,3 +125,121 @@ def test_pipeline_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
         with gzip.open(out, "rb") as f:
             outs[dev] = f.read()
     assert outs["cuda"] == outs["cpu"] and outs["cpu"]
+
+
+def _edit_rows(rng, p, length, d):
+    """uint8 [P, Lp] pairs of reads and copies with substitutions and
+    indels (lengths length-1..length+1, some |la - lb| > d, some empty),
+    random pad bytes past each length."""
+    l_pad = -(-(length + 1) // 16) * 16
+    a = rng.integers(0, 256, (p, l_pad), dtype=np.uint8)
+    b = rng.integers(0, 256, (p, l_pad), dtype=np.uint8)
+    a[:, :length + 1] = rng.integers(0, 5, (p, length + 1), dtype=np.uint8)
+    b[:, :length + 1] = a[:, :length + 1]
+    shift = rng.random(p) < 0.3  # b is a shifted by one: an indel
+    b[shift, 1:length + 1] = a[shift, :length]
+    for _ in range(d + 1):
+        sel = rng.random(p) < 0.4
+        b[sel, rng.integers(0, length + 1, int(sel.sum()))] = rng.integers(
+            0, 5, int(sel.sum()), dtype=np.uint8)
+    la = rng.integers(length - 1, length + 2, p).astype(np.int32)
+    lb = (la + rng.integers(-d - 2, d + 3, p)).clip(0, l_pad).astype(
+        np.int32)
+    la[::97] = 0
+    lb[::89] = 0
+    return (torch.from_numpy(a), torch.from_numpy(la), torch.from_numpy(b),
+            torch.from_numpy(lb))
+
+
+@pytest.mark.parametrize("d", [0, 1, 2, 3, 4, 6])
+def test_edit_kernel_matches_plain(cuda_device, d):
+    """Both compiled-in band widths (d <= 4) and the run-time width."""
+    a, la, b, lb = _edit_rows(np.random.default_rng(60 + d), 20_000, 100, d)
+    want = ek.banded_within_edit_distance(a, la, b, lb, d)
+    before = ek.LAUNCHES["banded_within_edit_distance"]
+    got = ek.banded_within_edit_distance(
+        a.to(cuda_device), la.to(cuda_device), b.to(cuda_device),
+        lb.to(cuda_device), d)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert 0 < int(want.sum()) < len(want)
+    assert ek.LAUNCHES["banded_within_edit_distance"] == before + 1
+
+
+@pytest.mark.parametrize("d", [1, 5])
+def test_edit_kernel_indexed_matches_gathered_plain(cuda_device, d):
+    a, la, _, _ = _edit_rows(np.random.default_rng(70 + d), 5_000, 30, d)
+    rng = np.random.default_rng(d)
+    ci = torch.from_numpy(rng.integers(0, 5_000, 50_000).astype(np.int32))
+    cj = (ci + torch.from_numpy(rng.integers(0, 3, 50_000).astype(
+        np.int32))) % 5_000
+    want = ek.banded_within_plain(a[ci.long()], la[ci.long()],
+                                  a[cj.long()], la[cj.long()], d)
+    got = ek.banded_within_edit_distance_indexed(
+        a.to(cuda_device), la.to(cuda_device), ci.to(cuda_device),
+        cj.to(cuda_device), d)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_edit_pipeline_on_card_matches_cpu(cuda_device, tmp_path,
+                                           monkeypatch):
+    """``--edit`` above HOST_LIMIT keys: the run on the card launches the
+    edit kernel (resident key matrix) and writes the CPU run's bytes."""
+    from fastqdedup_tpu_torch.pipeline import deduplicate_cluster
+
+    rng = random.Random(9)
+    molecules = ["".join(rng.choice("ACGT") for _ in range(40))
+                 for _ in range(400)]
+    records = []
+    for i in range(2000):
+        seq = list(rng.choice(molecules))
+        pos = rng.randrange(40)
+        op = rng.random()
+        if op < 0.2:
+            del seq[pos]
+        elif op < 0.4:
+            seq.insert(pos, rng.choice("ACGT"))
+        elif op < 0.6:
+            seq[pos] = rng.choice("ACGT")
+        records.append(f"@r{i}\n{''.join(seq)}\n+\n{'I' * len(seq)}\n")
+    src = tmp_path / "in.fastq.gz"
+    with gzip.open(src, "wt") as f:
+        f.write("".join(records))
+    monkeypatch.setenv("FASTQDEDUP_H2D_RATE", "1e15")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", dev)
+        before = ek.LAUNCHES["banded_within_edit_distance"]
+        out = tmp_path / f"{dev}.fastq.gz"
+        deduplicate_cluster([str(src)], [str(out)], None,
+                            use_edit_distance=True)
+        launched = ek.LAUNCHES["banded_within_edit_distance"] - before
+        assert (launched > 0) == (dev == "cuda")
+        with gzip.open(out, "rb") as f:
+            outs[dev] = f.read()
+    assert outs["cuda"] == outs["cpu"] and outs["cpu"]
+
+
+def test_edit_contains_within_on_card_launches_kernel(cuda_device,
+                                                      monkeypatch):
+    """Edit-mode membership above HOST_LIMIT keys: the card answers
+    through the banded kernel, with the CPU device's answers."""
+    from fastqdedup_tpu_torch.engine import HOST_LIMIT, contains_within
+
+    rng = random.Random(12)
+    keys = sorted({"".join(rng.choice("ACGT") for _ in range(
+        rng.randint(28, 32))).encode() for _ in range(HOST_LIMIT + 300)})
+    queries = [k[:5] + k[6:] for k in keys[:40]]
+    queries += [k[:7] + b"T" + k[7:] for k in keys[40:80]]
+    queries += ["".join(rng.choice("ACGT") for _ in range(30)).encode()
+                for _ in range(40)]
+    answers = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", dev)
+        before = ek.LAUNCHES["banded_within_edit_distance"]
+        answers[dev] = [contains_within(keys, q, 1, True) for q in queries]
+        launched = ek.LAUNCHES["banded_within_edit_distance"] - before
+        assert (launched > 0) == (dev == "cuda")
+    assert answers["cuda"] == answers["cpu"]
+    assert 0 < sum(answers["cpu"]) < len(queries)

@@ -248,11 +248,20 @@ def test_contains_within_matches_jax(query, d):
         jax_engine.contains_within(keys, query, d, False)
 
 
-def test_edit_above_host_limit_raises():
+def test_edit_above_host_limit_matches_jax():
+    """Edit mode above HOST_LIMIT keys of five lengths (runs of one base
+    that an indel shifts): the port gives the JAX package's partition."""
     keys = [bytes([65 + i % 4]) * 12 + bytes([65 + i // 4 % 4]) * 3
+            + bytes([65 + i // 16 % 4]) * (1 + i // 64)
             for i in range(300)]
-    with pytest.raises(NotImplementedError, match="edit"):
-        torch_engine.build_partition(keys, 1, use_edit_distance=True)
+    keys = sorted(set(keys))
+    assert len(keys) > torch_engine.HOST_LIMIT
+    want = jax_engine.build_partition(keys, 1, use_edit_distance=True)
+    got = torch_engine.build_partition(keys, 1, use_edit_distance=True)
+    assert got.num_clusters == want.num_clusters
+    for field in ("order", "starts", "ends", "edges_i", "edges_j"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field), err_msg=field)
 
 
 def test_require_mesh_raises(monkeypatch):

@@ -55,8 +55,32 @@ def _reads(rng, n, length, dup_rate=0.6, error_rate=0.02, suffix=""):
     return reads
 
 
+def _indel_reads(rng, n, length, suffix=""):
+    """Duplicate-heavy reads where copies carry one substitution,
+    deletion or insertion, so lengths vary by one around ``length``."""
+    reads, molecules = [], []
+    for i in range(n):
+        if molecules and rng.random() < 0.7:
+            seq = list(rng.choice(molecules))
+            op = rng.random()
+            pos = rng.randrange(len(seq))
+            if op < 0.3:
+                seq[pos] = rng.choice("ACGT")
+            elif op < 0.5:
+                del seq[pos]
+            elif op < 0.7:
+                seq.insert(pos, rng.choice("ACGT"))
+            seq = "".join(seq)
+        else:
+            seq = "".join(rng.choice("ACGT") for _ in range(length))
+            molecules.append(seq)
+        qual = "".join(chr(33 + rng.randrange(30, 40)) for _ in seq)
+        reads.append((f"read{i}{suffix}", seq, qual))
+    return reads
+
+
 def _run_both(tmp_path, inputs, check_slices=None, max_distance=1,
-              method="directional"):
+              method="directional", edit=False):
     paths = []
     for idx, records in enumerate(inputs):
         path = str(tmp_path / f"in{idx}.fastq.gz")
@@ -67,7 +91,7 @@ def _run_both(tmp_path, inputs, check_slices=None, max_distance=1,
         outs[tag] = [str(tmp_path / f"{tag}{i}.fastq.gz")
                      for i in range(len(paths))]
         dedup(paths, outs[tag], check_slices, max_distance, 0.001,
-              CLUSTER_DISSECTION_METHODS[method], False, chunk_records=53)
+              CLUSTER_DISSECTION_METHODS[method], edit, chunk_records=53)
     for want, got in zip(outs["jax"], outs["torch"]):
         with gzip.open(want, "rb") as fw, gzip.open(got, "rb") as fg:
             want_bytes, got_bytes = fw.read(), fg.read()
@@ -104,6 +128,33 @@ def test_paired_with_check_lengths_byte_identical(tmp_path):
           for name, _, qual in r1]
     _run_both(tmp_path, [r1, r2],
               check_slices=length_string_to_slices("16,8"))
+
+
+@pytest.mark.parametrize("method", ["directional", "adjacency",
+                                    "highest_count"])
+def test_edit_byte_identical(tmp_path, method):
+    """``--edit`` above HOST_LIMIT unique keys: the port's candidate
+    generation and banded verification (plain version on the CPU) write
+    the JAX package's bytes, and differ from the Hamming run."""
+    reads = _indel_reads(random.Random(50), 900, 24)
+    assert len({seq for _, seq, _ in reads}) > torch_engine.HOST_LIMIT
+    edit = _run_both(tmp_path, [reads], method=method, edit=True)
+    (tmp_path / "hamming").mkdir()
+    hamming = _run_both(tmp_path / "hamming", [reads], method=method)
+    with gzip.open(edit["torch"][0], "rb") as fe, \
+            gzip.open(hamming["torch"][0], "rb") as fh:
+        assert len(fe.read()) < len(fh.read())
+
+
+def test_edit_paired_with_check_lengths_byte_identical(tmp_path):
+    rng = random.Random(51)
+    r1 = _indel_reads(rng, 700, 20, suffix="/1")
+    r2 = [(name.replace("/1", "/2"),
+           "".join(rng.choice("ACGT") for _ in range(20)), "I" * 20)
+          for name, _, _ in r1]
+    _run_both(tmp_path, [r1, r2],
+              check_slices=length_string_to_slices("12,6"), edit=True,
+              max_distance=2)
 
 
 def test_cli_runs_without_jax(tmp_path):
