@@ -31,13 +31,31 @@ Phases, each printing one JSON line to stdout:
 6. ``api`` — the ``Trie`` facade in Levenshtein mode (membership queries
    and ``pop_all_clusters`` over 2,000 reads with indels) on the card and
    on the CPU device: equal answers, and the card's run, counted from 0,
-   launches the edit kernel.
+   launches the edit kernel;
+7. ``distributed`` — two processes of one ``torch.distributed`` job
+   (gloo over a ``TCPStore`` on localhost, both on ``cuda:0``) run the
+   ``default``, ``umi12`` and ``edit`` inputs (BGZF, so each process
+   ingests its byte range) and the default input split into two BGZF
+   halves in sharded-input mode.  The merged outputs must have the
+   pinned sha256s.  Per process it prints the wall time, the kernel
+   launches (counted from 0 before each run) and whether the TCP socket
+   mesh was up; then each of the first three runs once more under
+   ``torch.profiler`` for the card's busy time.  The umi12 runs must
+   launch ``bucket_within_packed`` and the edit runs
+   ``banded_within_edit_distance``, summed over both processes;
+8. ``mesh`` — component labels of the umi12 run's edge list with
+   ``sharded_components_from_edges`` on 2 shards of ``cuda:0`` (and on
+   every card when there are several) must equal host union-find;
+9. ``quality`` — the default run with ``FASTQDEDUP_DEVICE_QUALITY=1`` on
+   the card and on the CPU device must write the same bytes.
 
-Then one ``{"kernels": [...]}`` line (launch counts of phases 4-5, times
-and errors of phase 3), the ``nvidia-smi`` name/power-limit line, and the
-result line ``{"ok": true, "device": {...}}`` last.  Any failed check
-exits non-zero before the result line.  Without CUDA, or without the
-package beside this script, it exits 2 and prints no result.
+Then one ``{"kernels": [...]}`` line (launch counts of phases 4-5 and 7,
+times and errors of phase 3), the ``nvidia-smi`` name/power-limit line,
+and the result line ``{"ok": true, "device": {...}}`` last.  Any failed
+check, or a child process that fails, exits non-zero before the result
+line.  Without CUDA, or without the package beside this script, it exits
+2 and prints no result.  ``--distributed-worker`` is phase 7's child
+process, started by the script itself.
 
 The expected sha256 values were computed with the JAX package on the CPU
 from byte-identical inputs: generate each input with
@@ -552,7 +570,26 @@ def run_pipeline(workdir: str, name: str, src: str, n_reads: int,
     emit(line)
     if sha != expected:
         fail(f"{tag}: output sha256 {sha} != expected {expected}")
-    return launches
+    return line
+
+
+@contextlib.contextmanager
+def capture_edges(store: list):
+    """Record every edge list the engine hands to its component labels,
+    as ``(n, edges_i, edges_j)``."""
+    from fastqdedup_tpu_torch import engine
+
+    inner = engine._component_labels
+
+    def capture(n, ei, ej):
+        store.append((n, ei.copy(), ej.copy()))
+        return inner(n, ei, ej)
+
+    engine._component_labels = capture
+    try:
+        yield
+    finally:
+        engine._component_labels = inner
 
 
 def check_trie_api() -> dict:
@@ -600,6 +637,321 @@ def check_trie_api() -> dict:
     return counts["cuda"]
 
 
+# --------------------------------------------------------------------- #
+# Phase 7: two processes of one torch.distributed job
+
+
+def split_records(src: str, dests, n_first: int) -> None:
+    """Write the records of BGZF file ``src`` into two BGZF files: its
+    first ``n_first`` records, then the rest."""
+    from fastqdedup_tpu_torch.io.bgzf import BgzfWriter
+
+    with gzip.open(src, "rb") as f:
+        data = f.read()
+    newlines = np.flatnonzero(np.frombuffer(data, dtype=np.uint8) == 10)
+    cut = int(newlines[4 * n_first - 1]) + 1
+    view = memoryview(data)
+    for path, part in zip(dests, (view[:cut], view[cut:])):
+        with BgzfWriter(path, compresslevel=1) as f:
+            for off in range(0, len(part), 1 << 22):
+                f.write(part[off:off + (1 << 22)])
+
+
+def profiled_device_ms(prof) -> float:
+    """Device time of a profiled run: every kernel and copy once (self
+    time; the profiler's own buffer rows left out)."""
+    total_us = 0.0
+    for evt in prof.key_averages():
+        if "Activity Buffer" in evt.key:
+            continue
+        total_us += getattr(evt, "self_device_time_total", None) \
+            or getattr(evt, "self_cuda_time_total", 0.0)
+    return total_us / 1000.0
+
+
+def distributed_worker(pid: int, port: int, spec_path: str) -> int:
+    """Phase 7's child process: join the 2-process job, run each job of
+    the spec (and, where it asks, once more under the profiler), print
+    one JSON line per run."""
+    sys.path.insert(0, HERE)
+    from fastqdedup_tpu_torch import pipeline
+    from fastqdedup_tpu_torch.keys import length_string_to_slices
+    from fastqdedup_tpu_torch.parallel import distributed
+    from fastqdedup_tpu_torch.parallel.transport import get_mesh
+
+    distributed.initialize_distributed(f"127.0.0.1:{port}", 2, pid)
+    if distributed.process_shape() != (pid, 2):
+        fail(f"worker {pid}: process group {distributed.process_shape()}")
+    timers: dict = {}
+    plans: list = []
+
+    def timed(name: str, key: str) -> None:
+        inner = getattr(distributed, name)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                timers[key] = timers.get(key, 0.0) + \
+                    time.perf_counter() - t0
+
+        setattr(distributed, name, wrapper)
+
+    timed("exchange_merge_key_tables", "key_exchange_s")
+    timed("allgather_key_tables", "key_exchange_s")
+    timed("allgather_int64_pairs", "edge_exchange_s")
+    plan_inner = pipeline._plan_input_ranges
+
+    def plan(*args, **kwargs):
+        out = plan_inner(*args, **kwargs)
+        plans.append(bool(out))
+        return out
+
+    pipeline._plan_input_ranges = plan
+    with open(spec_path) as f:
+        jobs = json.load(f)
+
+    def run(job, suffix: str, env: dict, profile: bool) -> dict:
+        outputs = [o.replace(".fastq.gz", f"{suffix}.fastq.gz")
+                   for o in job["outputs"][pid]]
+        slices = length_string_to_slices(job["check_length"]) \
+            if job["check_length"] else None
+        timers.clear()
+        plans.clear()
+        with environment(env):
+            distributed.barrier("smoke:start")
+            reset_launch_counts()
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) if profile else None
+            with prof if prof is not None else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                pipeline.deduplicate_cluster(job["inputs"][pid], outputs,
+                                             slices,
+                                             use_edit_distance=job["edit"])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            launches = launch_counts()
+        line = {"phase": "distributed-process", "run": job["tag"] + suffix,
+                "job": job["tag"], "pid": pid, "seconds": seconds,
+                "launches": launches, "tcp_mesh_up": get_mesh() is not None,
+                "byte_range_plan": plans[-1] if plans else False,
+                "outputs": outputs, "profiled": profile, **timers}
+        if env != job["env"]:
+            line["forced"] = env
+        if prof is not None:
+            line["device_ms"] = profiled_device_ms(prof)
+        emit(line)
+        return line
+
+    for job in jobs:
+        line = run(job, "", job["env"], False)
+        kernel = job["must_launch"]
+        if kernel and job["force"]:
+            # Both processes take the same decision: it rests on the sum.
+            (total,) = distributed.sum_scalars(line["launches"][kernel])
+            if total == 0:
+                run(job, "_forced", {**job["env"], **job["force"]}, False)
+    for job in jobs:
+        if job["profile"]:
+            run(job, "_profiled", job["env"], True)
+    distributed.barrier("smoke:end")
+    return 0
+
+
+def run_distributed(workdir: str, files: dict, single: dict) -> dict:
+    """Phase 7: the 2-process job in two child processes of this script.
+    Checks every run's merged output against the pinned sha256 and the
+    required launches; returns the launches of the unprofiled runs,
+    summed over both processes.  ``single`` maps an input to its
+    single-process run's seconds in this call."""
+    import socket
+
+    halves = [os.path.join(workdir, f"default_half{p}.fastq.gz")
+              for p in range(2)]
+    t0 = time.perf_counter()
+    split_records(files["default"], halves, FILES["default"][0] // 2)
+    emit({"phase": "distributed", "note": "default input split into two "
+          "BGZF files of 500000 records", "seconds": time.perf_counter() - t0})
+
+    def out(tag):
+        return os.path.join(workdir, f"dist_{tag}.fastq.gz")
+
+    jobs = []
+    for name, kernel, force in (
+            ("default", None, None),
+            ("umi12", "bucket_within_packed", {
+                "FASTQDEDUP_DISPATCH_S": "1e-9",
+                "FASTQDEDUP_H2D_RATE": "1e-9"}),
+            ("edit", "banded_within_edit_distance", None)):
+        file, check_length, edit = INPUTS[name]
+        jobs.append({"tag": name, "input": name,
+                     "inputs": [[files[file]]] * 2,
+                     "outputs": [[out(name)]] * 2,
+                     "check_length": check_length, "edit": edit, "env": {},
+                     "must_launch": kernel, "force": force, "profile": True})
+    jobs.append({"tag": "default-sharded", "input": "default",
+                 "inputs": [[halves[0]], [halves[1]]],
+                 "outputs": [[out("sharded0")], [out("sharded1")]],
+                 "check_length": None, "edit": False,
+                 "env": {"FASTQDEDUP_SHARDED_INPUT": "1"},
+                 "must_launch": None, "force": None, "profile": False})
+    spec = os.path.join(workdir, "dist_jobs.json")
+    with open(spec, "w") as f:
+        json.dump(jobs, f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    logs = [os.path.join(workdir, f"worker{p}.log") for p in range(2)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for p in range(2):
+            with open(logs[p], "wb") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--distributed-worker", str(p), str(port), spec],
+                    env=env, cwd=HERE, stdout=log,
+                    stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + 600
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        fail("distributed: a worker did not finish within 600 s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    phase_s = time.perf_counter() - t0
+    lines = []
+    for proc, log in zip(procs, logs):
+        with open(log, errors="replace") as f:
+            text = f.read()
+        if proc.returncode != 0:
+            print(text[-4000:], file=sys.stderr)
+            fail(f"distributed: worker exited with {proc.returncode}")
+        lines += [json.loads(row) for row in text.splitlines()
+                  if row.startswith('{"phase": "distributed-process"')]
+    for line in lines:
+        emit(line)
+    summed: dict = {}
+    by_job = {job["tag"]: job for job in jobs}
+    for tag in dict.fromkeys(line["run"] for line in lines):
+        pair = sorted((x for x in lines if x["run"] == tag),
+                      key=lambda x: x["pid"])
+        if [x["pid"] for x in pair] != [0, 1]:
+            fail(f"distributed {tag}: not both processes reported")
+        job = by_job[pair[0]["job"]]
+        digest = hashlib.sha256()
+        paths = pair[0]["outputs"] if job["tag"] != "default-sharded" \
+            else pair[0]["outputs"] + pair[1]["outputs"]
+        for path in paths:
+            with gzip.open(path, "rb") as f:
+                for block in iter(lambda: f.read(1 << 22), b""):
+                    digest.update(block)
+        sha = digest.hexdigest()
+        expected = EXPECTED_SHA256[job["input"]]
+        launches = {k: pair[0]["launches"][k] + pair[1]["launches"][k]
+                    for k in pair[0]["launches"]}
+        wall = max(x["seconds"] for x in pair)
+        line = {"phase": "distributed", "run": tag, "processes": 2,
+                "wall_s": wall, "seconds": [x["seconds"] for x in pair],
+                "single_process_s": single.get(job["input"]),
+                "key_exchange_s": [x.get("key_exchange_s", 0.0)
+                                   for x in pair],
+                "edge_exchange_s": [x.get("edge_exchange_s", 0.0)
+                                    for x in pair],
+                "tcp_mesh_up": [x["tcp_mesh_up"] for x in pair],
+                "byte_range_plan": [x["byte_range_plan"] for x in pair],
+                "launches": launches, "sha256": sha,
+                "expected_sha256": expected}
+        if pair[0]["profiled"]:
+            device_ms = sum(x["device_ms"] for x in pair)
+            line["device_ms"] = device_ms
+            line["busy_share"] = device_ms / (wall * 1000.0)
+        emit(line)
+        if sha != expected:
+            fail(f"distributed {tag}: sha256 {sha} != expected {expected}")
+        if not pair[0]["profiled"]:
+            for k, v in launches.items():
+                summed[k] = summed.get(k, 0) + v
+    for job in jobs:
+        kernel = job["must_launch"]
+        if kernel and not sum(
+                x["launches"][kernel] for x in lines
+                if x["job"] == job["tag"] and not x["profiled"]):
+            fail(f"distributed {job['tag']}: {kernel} was never launched")
+    emit({"phase": "distributed", "seconds": phase_s, "launches": summed})
+    return summed
+
+
+# --------------------------------------------------------------------- #
+# Phases 8-9: labels on a mesh of devices, the device quality filter
+
+
+def check_mesh(n: int, ei: np.ndarray, ej: np.ndarray) -> None:
+    from fastqdedup_tpu_torch.ops.components import \
+        connected_components_host
+    from fastqdedup_tpu_torch.parallel.sharded import \
+        sharded_components_from_edges
+    from fastqdedup_tpu_torch.runtime import local_device_count
+
+    t0 = time.perf_counter()
+    want = connected_components_host(n, ei, ej)
+    host_s = time.perf_counter() - t0
+    cards = torch.cuda.device_count()
+    meshes = {"2 shards on cuda:0": [torch.device("cuda", 0)] * 2}
+    if cards > 1:
+        meshes[f"one shard on each of {cards} cards"] = [
+            torch.device("cuda", i) for i in range(cards)]
+    count = local_device_count()
+    route = ("not taken here: local_device_count() is 1, so the "
+             "pipeline's labels came from host union-find; the mesh "
+             "route is pinned by the CPU tests" if count == 1 else
+             f"taken by the pipeline above FASTQDEDUP_MESH_MIN_EDGES "
+             f"(local_device_count() is {count})")
+    for label, mesh in meshes.items():
+        sharded_components_from_edges(n, ei, ej, mesh)  # first use
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels = sharded_components_from_edges(n, ei, ej, mesh)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        equal = bool(np.array_equal(labels, want))
+        emit({"phase": "mesh", "mesh": label,
+              "devices": [str(d) for d in mesh], "keys": n,
+              "edges": int(len(ei)), "components": int(len(np.unique(want))),
+              "seconds": seconds, "host_union_find_s": host_s,
+              "equal_to_union_find": equal, "engine_route": route})
+        if not equal:
+            fail(f"mesh {label}: labels differ from host union-find")
+
+
+def check_quality(workdir: str, src: str) -> None:
+    from fastqdedup_tpu_torch.pipeline import deduplicate_cluster
+
+    shas = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(workdir, f"quality_{dev}.fastq.gz")
+        with environment({"FASTQDEDUP_DEVICE_QUALITY": "1",
+                          "FASTQDEDUP_TORCH_DEVICE": dev}):
+            t0 = time.perf_counter()
+            deduplicate_cluster([src], [out], None)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        shas[dev] = decompressed_sha256(out)
+        os.unlink(out)
+        emit({"phase": "quality", "device": dev, "seconds": seconds,
+              "sha256": shas[dev], "equals_host_filter_sha256":
+              shas[dev] == EXPECTED_SHA256["default"]})
+    if shas["cuda"] != shas["cpu"]:
+        fail("quality: the card's device-quality output differs from the "
+             "CPU device's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -635,8 +987,7 @@ def main() -> int:
     os.environ["FASTQDEDUP_TORCH_DEVICE"] = "cuda"
     from fastqdedup_tpu_torch.ops.bucket import measured_h2d_rate
 
-    # The rate the routes weigh copies with; edit mode verifies on the
-    # host instead of the card only below 200e6 B/s.
+    # The rate the Hamming routes weigh copies with.
     emit({"phase": "route", "measured_h2d_bytes_per_s": measured_h2d_rate()})
     workdir = tempfile.mkdtemp(
         prefix="smoke_", dir=os.path.join(HERE, "fastqdedup_tpu_torch",
@@ -654,19 +1005,23 @@ def main() -> int:
                                 check_length, edit, tag, overrides)
 
         def run_until_launched(kernel, name, overrides):
-            launches = run(name, name)
-            if launches[kernel] == 0:
+            line = run(name, name)
+            if line["launches"][kernel] == 0:
                 emit({"phase": "route", "note":
                       f"measured-rate routing did not launch {kernel} on "
                       f"input {name!r}; forcing it", "forced": overrides})
-                launches = run(name, f"{name}-forced", overrides)
-                if launches[kernel] == 0:
+                if run(name, f"{name}-forced",
+                       overrides)["launches"][kernel] == 0:
                     fail(f"forced run of {name!r} did not launch {kernel}")
+            return line
 
-        # The Hamming path: counts from 0, read after its runs.
+        # The Hamming path: counts from 0, read after its runs.  The
+        # single-process seconds of default, umi12 and edit are the
+        # baseline of the 2-process runs in phase 7; the umi12 edge list
+        # feeds phase 8.
         reset_launch_counts()
         run("default", "default-first")
-        run("default", "default-repeat")
+        single = {"default": run("default", "default-repeat")["seconds"]}
         forced_runs = (
             ("rowwise_within_packed", "dense", {
                 "FASTQDEDUP_DISPATCH_S": "1e-9",
@@ -678,33 +1033,45 @@ def main() -> int:
             ("within_tile_packed", "small", {
                 "FASTQDEDUP_DEVICE_CUTOVER_S": "0"}),
         )
+        umi12_edges: list = []
         for kernel, name, overrides in forced_runs:
-            run_until_launched(kernel, name, overrides)
+            with capture_edges(umi12_edges if name == "umi12" else []):
+                line = run_until_launched(kernel, name, overrides)
+            single[name] = line["seconds"]
         hamming_launches = launch_counts()
-        # The Levenshtein path: counts from 0 again.  A fast wire keeps
-        # the key matrix on the card; the knob forces that route only
-        # where the measured rate did not.
+        # The Levenshtein path: counts from 0 again.  On the card every
+        # candidate batch goes to the kernel.
         reset_launch_counts()
         for name in ("edit", "indel"):
-            run_until_launched("banded_within_edit_distance", name,
-                               {"FASTQDEDUP_H2D_RATE": "1e15"})
+            line = run(name, name)
+            single[name] = line["seconds"]
+            if line["launches"]["banded_within_edit_distance"] == 0:
+                fail(f"{name}: the pipeline did not launch "
+                     f"banded_within_edit_distance")
         edit_launches = launch_counts()
+        # The Trie API: a second entry point of the Levenshtein path,
+        # with counts of its own.
+        check_trie_api()
+        # Two processes, each counting from 0 before every run.
+        distributed_launches = run_distributed(workdir, files, single)
+        check_mesh(*max(umi12_edges, key=lambda e: len(e[1])))
+        check_quality(workdir, files["default"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    # The Trie API: a second entry point of the Levenshtein path, with
-    # counts of its own.
-    check_trie_api()
 
-    path_launches = {name: (edit_launches if name ==
-                            "banded_within_edit_distance"
-                            else hamming_launches)[name]
-                     for name in KERNELS}
-    for name, count in path_launches.items():
-        if count == 0:
-            fail(f"the pipeline never launched {name}")
+    by_path = {
+        name: {"hamming": hamming_launches[name],
+               "edit": edit_launches[name],
+               "distributed": distributed_launches.get(name, 0)}
+        for name in KERNELS}
+    for name, counts in by_path.items():
+        path = "edit" if name == "banded_within_edit_distance" else "hamming"
+        if counts[path] == 0:
+            fail(f"the {path} path never launched {name}")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces, "launches": path_launches[name],
+         "replaces": replaces, "launches": sum(by_path[name].values()),
+         "launches_by_path": by_path[name],
          "max_abs_err": summary[name]["max_abs_err"],
          "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"]}
         for name, (source, replaces) in KERNELS.items()]})
@@ -716,4 +1083,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--distributed-worker"]:
+        sys.exit(distributed_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                    sys.argv[4]))
     sys.exit(main())

@@ -143,6 +143,10 @@ def main() -> None:
     args = argument_parser().parse_args()
     initiate_logger(args.verbose, args.quiet)
     logger = logging.getLogger("fastqdedup")
+    # Under torchrun every process joins the job here; a lone process
+    # stays single-process.
+    from .parallel.distributed import initialize_distributed
+    initialize_distributed()
 
     input_files = args.fastq
     check_slices = (length_string_to_slices(args.check_lengths)

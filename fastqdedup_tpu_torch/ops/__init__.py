@@ -10,6 +10,8 @@
   binds it;
 * :mod:`.bucket` — pigeonhole candidate generation (Hamming buckets and
   the shifted-segment edit candidates);
-* :mod:`.components` — host union-find;
+* :mod:`.components` — host union-find and the device label
+  propagation that parallel/sharded.py runs on a mesh of devices;
+* :mod:`.phred` — the opt-in device quality filter;
 * :mod:`.encode` — the alphabet table and nibble packing.
 """

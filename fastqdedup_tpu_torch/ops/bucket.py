@@ -30,6 +30,7 @@ import torch
 
 from ..parallel.distributed import _mix64
 from ..runtime import device as _device
+from ..runtime import local_devices
 from .hamming_kernels import (
     ROW_BLOCK,
     _pad_dims,
@@ -139,10 +140,12 @@ def _iter_bucket_slices(group_ids: np.ndarray
 
 
 def _bucketed_within(batch: np.ndarray, alphabet_size: int,
-                     max_distance: int) -> torch.Tensor:
-    """uint8 [K, S, ceil(S/8)] on the run's device: bitpacked per-bucket
-    all-pairs Hamming <= max_distance (unpack with np.unpackbits
-    bitorder="little").
+                     max_distance: int,
+                     device: "Optional[torch.device]" = None
+                     ) -> torch.Tensor:
+    """uint8 [K, S, ceil(S/8)] on ``device`` (default: the run's device):
+    bitpacked per-bucket all-pairs Hamming <= max_distance (unpack with
+    np.unpackbits bitorder="little").
 
     ``batch``: uint8 [K, S, L] alphabet indices; padded slots hold
     ``_PAD_INDEX``, which matches nothing, so padded rows are at distance
@@ -156,7 +159,8 @@ def _bucketed_within(batch: np.ndarray, alphabet_size: int,
     if l_pad != length:
         batch = np.pad(batch, ((0, 0), (0, 0), (0, l_pad - length)),
                        constant_values=_PAD_INDEX)
-    batch_dev = torch.from_numpy(np.ascontiguousarray(batch)).to(_device())
+    batch_dev = torch.from_numpy(np.ascontiguousarray(batch)).to(
+        device if device is not None else _device())
     return bucket_within_packed(batch_dev, length, max_distance, a_pad)
 
 
@@ -466,10 +470,12 @@ def _launch_bucket_batches(matrix: np.ndarray,
         ex_s, ex_e = exclude_cols
         length -= ex_e - ex_s
     k = _buckets_per_call(size_class)
+    devices = local_devices()
     # The kernel keeps its match counts in registers: the device only
     # pins the uint8 input [K,S,Lp] and the packed output [K,S,S/8].
     nbytes = k * size_class * (length + size_class // 8)
-    for start in range(0, len(member_lists), k):
+    for call_index, start in enumerate(
+            range(0, len(member_lists), k)):
         chunk = member_lists[start:start + k]
         members = np.full((k, size_class), -1, dtype=np.int64)
         batch = np.full((k, size_class, length), _PAD_INDEX, dtype=np.uint8)
@@ -485,8 +491,12 @@ def _launch_bucket_batches(matrix: np.ndarray,
             # _PAD_INDEX fill survives: lut[0xFF] is UNASSIGNED == 0xFF
             # whenever this path is active (see engine._encode_entries).
             batch = encode_lut[batch]
-        yield (members, _bucketed_within(batch, alphabet_size, max_distance),
-               nbytes)
+        # Bucket batches are independent: round-robin them across the
+        # local devices (data parallelism without collectives — the
+        # host-side drain copies each result back from its device).
+        yield (members, _bucketed_within(
+            batch, alphabet_size, max_distance,
+            device=devices[call_index % len(devices)]), nbytes)
 
 
 # Total device bytes allowed in flight before the launch loop blocks on the
@@ -593,14 +603,37 @@ def hamming_neighbor_pairs_bucketed(
     pair_src = {"host": 0, "device": 0}
     dev_verifier: "Optional[_DevicePairVerifier]" = None
 
+    # Multi-host: shard the per-row bucket hashing itself.  Each host
+    # hashes only its 1/P row block for EVERY segment, one column
+    # all-gather distributes the u64 hashes (8 B/row/segment — far less
+    # than re-reading the full key table per segment on every host), and
+    # ownership + owned-row compaction run locally from the gathered
+    # values with the exact formula of the fused C path
+    # (mix64(hash ^ salt_mix) % nproc), so the bucket->host partition is
+    # unchanged.  Gated to large tables: each call adds one collective,
+    # which only pays for itself once the replicated hash work dominates
+    # the collective's latency floor.
     seg_list = segment_bounds(length, max_distance + 1)
-    if nproc > 1 and _live_process_count() == nproc:
-        # A live multi-process job shards the bucket hashing through a
-        # column all-gather in the JAX package; that exchange is not
-        # ported.  (Simulated sharding in ONE process stays supported.)
-        raise NotImplementedError(
-            "multi-process bucket hashing is not ported to "
-            "fastqdedup_tpu_torch yet")
+    gathered_hashes: "Optional[np.ndarray]" = None
+    shard_hash_min = int(os.environ.get(
+        "FASTQDEDUP_SHARD_HASH_MIN_ROWS", str(1 << 20)))
+    if nproc > 1 and n >= shard_hash_min and _live_process_count() == nproc:
+        # The process-count check keeps the single-process simulated
+        # sharding contract intact (tests call shard=(p, P) in ONE
+        # process, where the all-gather would be a no-op and the
+        # gathered block would silently stand in for the full table).
+        blk_lo = pid * n // nproc
+        blk_hi = (pid + 1) * n // nproc
+        local = np.empty((len(seg_list), blk_hi - blk_lo), dtype=np.int64)
+        for si, (a, b) in enumerate(seg_list):
+            local[si] = _hash_window_rows(
+                matrix[blk_lo:blk_hi, a:b], b - a,
+                strong=False).view(np.int64)
+        from ..parallel.distributed import allgather_int64_cols
+        g, _ = allgather_int64_cols(local)
+        gathered_hashes = g.view(np.uint64)
+        del g  # keep exactly one live view so release() can recycle
+        _mark("hash")
 
     def drain(down_to: int) -> None:
         # Resolve oldest batches until in-flight bytes fall to the target;
@@ -627,7 +660,17 @@ def hamming_neighbor_pairs_bucketed(
     for seg_index, (seg_start, seg_end) in enumerate(seg_list):
         _t0[0] = _time.perf_counter()
         window = matrix[:, seg_start:seg_end]
-        if nproc > 1:
+        if gathered_hashes is not None:
+            h = gathered_hashes[seg_index]
+            salt_mix = np.uint64(
+                (0x9E3779B97F4A7C15 * (seg_index + 1)) & _MASK64)
+            owner = _mix64(h ^ salt_mix)
+            owner %= np.uint64(nproc)
+            mine = np.flatnonzero(owner == np.uint64(pid))
+            _mark("hash")
+            order, starts, ends = _bucket_slices_of_hashes(h[mine])
+            order = mine[order]
+        elif nproc > 1:
             # Ownership is a salted mix of the segment-content hash, so
             # it is computable PER ROW before any grouping: every member
             # of a bucket shares the hash, hence the owner.  Each host
@@ -733,6 +776,11 @@ def hamming_neighbor_pairs_bucketed(
         _mark("launch")
         for b in np.flatnonzero((sizes > over_cutoff) & owned):
             oversized.append((order[starts[b]:ends[b]], seg))
+    if gathered_hashes is not None:
+        from ..runtime import release
+        del h  # the last per-segment view into the gathered buffer
+        release(gathered_hashes)
+        gathered_hashes = None
     drain(0)
     # Oversized buckets: dedicated all-pairs sweep per bucket (same
     # segment-complement reduction + per-pair segment re-check).

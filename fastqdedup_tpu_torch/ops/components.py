@@ -7,12 +7,13 @@ trie walks.  Here the whole partition is computed at once:
 * :func:`connected_components_host` — weighted-ish union-find with path
   halving over the edge list (numpy-backed, O(E alpha(N))).  Used by the
   single-host pipeline where edge lists are sparse.
-
-The device label propagation (``connected_components_device`` in the JAX
-package), which serves labels across several devices, is not ported yet.
+* :func:`connected_components_device` — min-label propagation with
+  pointer doubling in torch ops on a device; the per-shard step of the
+  labels across several devices (parallel/sharded.py).
 """
 
 import numpy as np
+import torch
 
 
 def connected_components_host(n: int, pairs_i: np.ndarray,
@@ -43,3 +44,39 @@ def connected_components_host(n: int, pairs_i: np.ndarray,
         if np.array_equal(m, prev):
             return m
         labels = m
+
+
+def relax_edges(labels: torch.Tensor, src: torch.Tensor,
+                dst: torch.Tensor) -> torch.Tensor:
+    """One hooking step: every edge endpoint takes the smaller label of
+    its edge (``labels.at[src].min(m).at[dst].min(m)`` in the JAX
+    package).  ``src``/``dst`` are int64 on ``labels``' device."""
+    m = torch.minimum(labels[src], labels[dst])
+    return labels.scatter_reduce(0, src, m, "amin").scatter_reduce_(
+        0, dst, m, "amin")
+
+
+def connected_components_device(edges: torch.Tensor, edge_mask: torch.Tensor,
+                                num_nodes: int) -> torch.Tensor:
+    """Min-label propagation over a padded edge list.
+
+    ``edges``: int [E, 2]; ``edge_mask``: bool [E] (False rows ignored).
+    Returns int32 labels [num_nodes] on ``edges``' device, each label the
+    smallest node index in its component: scatter-min edge relaxation
+    alternating with two pointer-doubling hops until no label changes,
+    O(log N) rounds.  Masked rows become self-loops on the last node,
+    which change nothing.
+    """
+    dev = edges.device
+    last = torch.tensor(num_nodes - 1, dtype=torch.int64, device=dev)
+    src = torch.where(edge_mask, edges[:, 0].long(), last)
+    dst = torch.where(edge_mask, edges[:, 1].long(), last)
+    labels = torch.arange(num_nodes, dtype=torch.int64, device=dev)
+    while True:
+        new = relax_edges(labels, src, dst)
+        # Pointer doubling: label[i] <- label[label[i]] (idempotent chase).
+        new = new[new]
+        new = new[new]
+        if torch.equal(new, labels):
+            return new.to(torch.int32)
+        labels = new

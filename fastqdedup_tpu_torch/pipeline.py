@@ -1,10 +1,9 @@
 """End-to-end deduplication pipeline (three passes).
 
-Counterpart of ``fastqdedup_tpu/pipeline.py`` for one process on one
-device.  The multi-process modes of the JAX package (strided and
-byte-range ingest across hosts, key-table exchange, sharded input,
-part-file output merge) are not ported yet: ``process_shape`` refuses a
-multi-process job.
+Counterpart of ``fastqdedup_tpu/pipeline.py``, including its
+multi-process modes (strided and byte-range ingest across processes,
+key-table exchange, sharded input, part-file output merge) over
+``torch.distributed`` (parallel/distributed.py).
 
 Drop-in equivalent of the reference's ``deduplicate_cluster``
 (/root/reference/src/fastqdedup/__init__.py:209-288), re-architected for
@@ -12,7 +11,7 @@ batch execution:
 
 * **Pass 1 — ingest**: columnar FASTQ chunks -> vectorized check-slice keys
   -> quality filter (bit-exact float64 LUT reduction, see
-  fastqdedup_tpu.quality) -> per-chunk sort/unique exact-duplicate collapse
+  fastqdedup_tpu_torch.quality) -> per-chunk sort/unique exact-duplicate collapse
   into a global (key -> count) map.  This replaces per-record trie insertion
   (_triemodule.c:222-288).
 * **Pass 2 — cluster & dissect**: the dense engine partitions unique keys
@@ -55,6 +54,9 @@ from .utils.timing import Timer
 DEFAULT_MAX_DISTANCE = 1
 DEFAULT_MAX_AVERAGE_ERROR_RATE = 0.001
 DEFAULT_CHUNK_RECORDS = 1 << 18
+# Global-record-index stride between hosts in sharded-input mode: each
+# host's records occupy [pid * stride, pid * stride + its record count).
+_SHARD_STRIDE = 1 << 44
 
 logger = logging.getLogger("fastqdedup")
 
@@ -181,7 +183,7 @@ def _zip_chunks_serial(input_files: List[str], chunk_records: int,
     one file's wall time, not the sum.
 
     ``range_plan``: per-file ``(start_offset, skip_newlines, n_records)``
-    byte-range ingest (see :func:`_plan_local_ranges`) — each reader
+    byte-range ingest (see :func:`_plan_input_ranges`) — each reader
     opens at its BGZF member boundary, skips to its record boundary, and
     is capped at its record budget.
     """
@@ -548,6 +550,7 @@ class _RecordArenaStore:
 def _finalize_groups(key_data: np.ndarray, key_offsets: np.ndarray,
                      counts: np.ndarray, first_pos: np.ndarray,
                      single_table: bool = False,
+                     pre_merged: bool = False,
                      hashes: Optional[np.ndarray] = None) -> KeyGroups:
     """Accumulator dump -> per-length deterministically ordered KeyGroups.
 
@@ -607,9 +610,10 @@ def _finalize_groups(key_data: np.ndarray, key_offsets: np.ndarray,
         else:
             sel = np.flatnonzero(lengths_all == length)
             void = rows_as_void(key_data, key_offsets, sel, int(length))
-        if single_table and use_hash_order:
-            # Native accumulator export: unique keys, deterministic
-            # order — no sort, no duplicate collapse.
+        if (single_table and use_hash_order) or pre_merged:
+            # Native accumulator export (single_table) or the gathered
+            # concatenation of per-host owned merges (pre_merged): unique
+            # keys, deterministic order — no sort, no duplicate collapse.
             sv = void
             if uniform_length:
                 # Full-slice views, NOT the caller's array objects: the
@@ -681,9 +685,98 @@ def _finalize_groups(key_data: np.ndarray, key_offsets: np.ndarray,
 def _quality_mask(qual_data, qual_offsets, max_average_error_rate
                   ) -> np.ndarray:
     """uint8 keep-mask for one chunk (runs on its own worker thread)."""
-    rates = ragged_average_error_rate(qual_data, qual_offsets)
-    keep = ~(rates > max_average_error_rate)
+    if os.environ.get("FASTQDEDUP_DEVICE_QUALITY") == "1":
+        # Opt-in device path: f32 LUT gather + masked mean on the run's
+        # device (ops/phred.py).  Trades the host path's bit-exact
+        # float64 rounding and strict character-range validation for
+        # throughput when the host CPU is the bottleneck.
+        import torch
+
+        from .ops.phred import quality_filter_mask
+        from .runtime import device
+        from .utils.ragged import pad_to_matrix
+        matrix, lens = pad_to_matrix(qual_data, qual_offsets, fill=33)
+        dev = device()
+        keep = quality_filter_mask(
+            torch.from_numpy(np.ascontiguousarray(matrix)).to(dev),
+            torch.from_numpy(lens.astype(np.int32)).to(dev),
+            max_average_error_rate).cpu().numpy()
+    else:
+        rates = ragged_average_error_rate(qual_data, qual_offsets)
+        keep = ~(rates > max_average_error_rate)
     return keep.astype(np.uint8)
+
+
+def _plan_input_ranges(input_files: List[str], pid: int, nproc: int,
+                       n_parts: int = 1
+                       ) -> "Optional[List[Tuple[List[Tuple[int, int, int]], int]]]":
+    """Byte-range ingest plan for the default multi-host mode.
+
+    Returns this host's record window [N*p/P, N*(p+1)/P) split into up
+    to ``n_parts`` concurrent-reader plans, each ``(per_file_plan,
+    base_record)`` with ``per_file_plan`` one ``(start_offset,
+    skip_newlines, n_records)`` per input file — or None when any input
+    is not BGZF / not line-clean (callers fall back to strided chunk
+    ownership, pipeline.py's ``chunk_index % nproc`` partition, which
+    parses the whole input on every host).
+
+    Phase A: every host inflates only its 1/P compressed-byte range of
+    each file (no FASTQ parsing) and counts newlines per inflate unit;
+    the tiny unit tables all-gather, making global line — and hence
+    record — ordinals exact on every host.  Phase B (the caller's parse)
+    then reads records [N*p/P, N*(p+1)/P) per file: inflate work is 2/P
+    of the file total and parse work is 1/P, versus 1 + 1/P for strided
+    ownership.  Correctness does not rely on FASTQ resynchronization
+    heuristics (quality lines may contain '@').
+    """
+    try:
+        from .native.loader import count_bgzf_range_units
+    except ImportError:
+        return None
+    from .parallel.distributed import allgather_int64_cols
+
+    per_file_units = []
+    supported = True
+    for path in input_files:
+        try:
+            size = os.path.getsize(path)
+            lo = size * pid // nproc
+            hi = size * (pid + 1) // nproc if pid < nproc - 1 else -1
+            units = count_bgzf_range_units(path, lo, hi)
+        except OSError:
+            units = None
+        if units is None:
+            supported = False
+            break
+        per_file_units.append(units)
+    # BGZF-ness is a property of the file bytes, but IO errors need not
+    # be symmetric (per-host filesystems) — vote so no host proceeds to
+    # the unit-table allgather while another has already given up.
+    from .parallel.distributed import sum_scalars
+    (ok_hosts,) = sum_scalars(int(supported))
+    if ok_hosts != nproc:
+        return None
+
+    gathered_units = []
+    for ends, lines in per_file_units:
+        gathered, _ = allgather_int64_cols(
+            np.ascontiguousarray(np.stack([ends, lines])))
+        gathered_units.append((gathered[0], gathered[1]))
+    made = _splits_from_units(gathered_units)
+    if made is None:
+        # Blank/truncated trailing lines: give up on exact record
+        # ordinals and let the strided path's tolerant parser decide.
+        return None
+    splits, n_min = made
+    rec_lo = n_min * pid // nproc
+    rec_hi = n_min * (pid + 1) // nproc
+    parts = _range_parts_from_units(splits, rec_lo, rec_hi, n_parts)
+    if not parts:
+        # Empty window (more hosts than records): a zero-budget plan —
+        # NOT None/[], which would divert this host to strided mode
+        # while its peers partition by range (records double-counted).
+        parts = [([(0, 0, 0)] * len(splits), rec_lo)]
+    return parts
 
 
 def _splits_from_units(per_file_units
@@ -746,9 +839,9 @@ def _plan_local_ranges(input_files: List[str], n_parts: int
     """Split this host's inputs into ``n_parts`` record ranges for
     CONCURRENT readers inside one process (no collectives).
 
-    Returns one ``(per_file_plan, base_record)`` per part — each
-    ``per_file_plan`` one ``(start_offset, skip_newlines, n_records)`` per
-    input file — or None when any input is not BGZF / not line-clean.  Phase A (the newline count) is
+    Returns one ``(per_file_plan, base_record)`` per part — the same
+    shape :func:`_plan_input_ranges` returns per host — or None when any
+    input is not BGZF / not line-clean.  Phase A (the newline count) is
     itself parallelized across ``n_parts`` byte ranges per file.
     """
     try:
@@ -861,6 +954,40 @@ def _parallel_range_chunks(input_files: List[str], chunk_records: int,
             t.join(timeout=0.5)
 
 
+def _compress_part_payload(payload: np.ndarray, out_name: str) -> np.ndarray:
+    """Compress a raw output part into BGZF members when the final output
+    is gzip.  Hosts compress their own parts in parallel; the rank-0
+    merge then only CONCATENATES part bytes (BGZF members chain) instead
+    of recompressing the whole output serially — the former p0 tail was
+    a per-output-byte non-scaling term every host paid at the final
+    barrier.  Non-gz outputs pass through (merged via the codec layer)."""
+    if not out_name.endswith(".gz") or not len(payload):
+        return payload
+    from .io.bgzf import BLOCK_SIZE, compress_block
+    mv = memoryview(payload)
+    parts = [compress_block(bytes(mv[off:off + BLOCK_SIZE]), 1)
+             for off in range(0, len(mv), BLOCK_SIZE)]
+    return np.frombuffer(b"".join(parts), dtype=np.uint8)
+
+
+def _merge_output_parts(out: str, parts_dir: str) -> None:
+    """Concatenate a parts directory into the final output file."""
+    import shutil
+    if out.endswith(".gz"):
+        from .io.bgzf import BGZF_EOF
+        with open(out, "wb") as writer:
+            for name in sorted(os.listdir(parts_dir)):
+                with open(os.path.join(parts_dir, name), "rb") as part:
+                    shutil.copyfileobj(part, writer, 8 << 20)
+            writer.write(BGZF_EOF)
+    else:
+        with xopen(out, "wb", compresslevel=1) as writer:
+            for name in sorted(os.listdir(parts_dir)):
+                writer.write(np.fromfile(
+                    os.path.join(parts_dir, name), dtype=np.uint8))
+    shutil.rmtree(parts_dir)
+
+
 def _render_and_recycle(store, chunks, is_new, base, chunk_index,
                         recycle_bin):
     """Arena render of one chunk's new-key records + parse-buffer
@@ -951,20 +1078,67 @@ def deduplicate_cluster(
     Same contract as the reference driver (__init__.py:209-288): arity
     validation, quality filter applied over the check-sliced qualities,
     within-distance clustering, cluster dissection, first-wins rewrite.
+
+    In a multi-process job, any failure tears down the host byte
+    transport before re-raising so PEER hosts parked in a collective
+    fail fast instead of deadlocking against this host's interpreter
+    shutdown.
     """
+    try:
+        _deduplicate_cluster_impl(
+            input_files, output_files, check_slices, max_distance,
+            max_average_error_rate, cluster_dissection_func,
+            use_edit_distance, chunk_records)
+    except BaseException:
+        from .parallel.transport import abort_mesh
+        abort_mesh()
+        raise
+
+
+def _deduplicate_cluster_impl(
+    input_files: List[str],
+    output_files: List[str],
+    check_slices: Optional[List[slice]],
+    max_distance: int,
+    max_average_error_rate: float,
+    cluster_dissection_func: ClusterDissectionFunc,
+    use_edit_distance: bool,
+    chunk_records: int,
+) -> None:
     from .runtime import device, tune_host_allocator
     tune_host_allocator()
     # Resolve the device before any work: a run configured for CUDA on a
     # host without it fails here, not after pass 1.
     device()
-    if os.environ.get("FASTQDEDUP_DEVICE_QUALITY") == "1":
-        raise NotImplementedError(
-            "FASTQDEDUP_DEVICE_QUALITY=1: the device quality filter "
-            "(ops/phred.py) is not ported to fastqdedup_tpu_torch yet")
-    # One process on one device: process_shape() refuses a multi-process
-    # job, whose exchanges are not ported yet.
-    from .parallel.distributed import process_shape
+    # Multi-host mode engages automatically when the process is part of an
+    # initialized torch.distributed job (same CLI invocation on every host):
+    # chunks stride across hosts in passes 1 and 3, bucket pair generation
+    # partitions by content ownership in pass 2, and the per-host results
+    # merge through padded all-gathers (parallel/distributed.py).  A
+    # user-supplied cluster_dissection_func must be deterministic — it runs
+    # identically on every host.
+    from .parallel.distributed import (
+        allgather_key_tables,
+        process_shape,
+        sum_scalars,
+    )
     pid, nproc = process_shape()
+    if nproc > 1:
+        # Build the TCP mesh NOW, while every host is provably alive and
+        # inside the pipeline: lazy construction at the first exchange
+        # would block for the KV timeout if a peer died during pass 1.
+        from .parallel.transport import get_mesh
+        get_mesh()
+    # Sharded-input mode (FASTQDEDUP_SHARDED_INPUT=1): each host passes
+    # ITS OWN input/output shard on the command line (e.g. per-lane
+    # files); parsing and rewriting parallelize perfectly — no strided
+    # chunk skipping, no output merge — while the key tables, clustering,
+    # and dissection still agree globally.  The global record order is
+    # the concatenation of shards by process id, so first-wins picks the
+    # first occurrence in that concatenated order.
+    sharded_input = nproc > 1 and \
+        os.environ.get("FASTQDEDUP_SHARDED_INPUT") == "1"
+    shard_base = pid * _SHARD_STRIDE if sharded_input else 0
     if len(input_files) != len(output_files):
         raise ValueError(f"Amount of output files ({len(output_files)}) "
                          f"must be equal to the amount of input files "
@@ -997,6 +1171,12 @@ def deduplicate_cluster(
     from concurrent.futures import ThreadPoolExecutor
 
     accumulator = _make_key_accumulator()
+    # Default multi-host mode: byte-range BGZF splitting — each host
+    # inflates and parses only its 1/P record range (exact global record
+    # ordinals from a newline-count exchange).  Falls back to strided
+    # chunk ownership (parse everything, keep 1/P) for non-BGZF inputs.
+    range_plan = None
+    range_base = 0
     # Parallel range ingest (within one host): the native parser's record
     # scan is single-threaded per reader, so once inflate overlaps, the
     # scan bounds pass-1 throughput.  Splitting this host's record window
@@ -1019,7 +1199,30 @@ def deduplicate_cluster(
             or max(1, min(4, _cpus))
     else:
         n_readers = 1
-    if n_readers > 1:
+    if nproc > 1 and not sharded_input \
+            and os.environ.get("FASTQDEDUP_RANGE_INPUT", "1") != "0":
+        planned = _plan_input_ranges(input_files, pid, nproc,
+                                     n_parts=n_readers)
+        if planned:
+            if len(planned) > 1:
+                parallel_parts = planned
+                # Pass 3's re-stream layout reads serially; give it the
+                # whole host window (parts are contiguous, so part 0's
+                # start/skip plus the summed record budget IS the
+                # window).  Pass 1 ignores range_plan while
+                # parallel_parts is set.
+                _total = sum(p[0][0][2] for p in planned)
+                range_plan = [(start, skip, _total)
+                              for (start, skip, _n) in planned[0][0]]
+                range_base = planned[0][1]
+            else:
+                range_plan, range_base = planned[0]
+            logger.debug(
+                "byte-range ingest: host %d/%d parses records "
+                "[%d, %d) per file across %d reader(s)", pid, nproc,
+                planned[0][1],
+                planned[-1][1] + planned[-1][0][0][2], len(planned))
+    elif (nproc == 1 or sharded_input) and n_readers > 1:
         parallel_parts = _plan_local_ranges(input_files, n_readers)
         if parallel_parts is not None:
             logger.debug("parallel ingest: %d range readers",
@@ -1032,6 +1235,9 @@ def deduplicate_cluster(
     recycle_bin: Optional[List[np.ndarray]] = None
     if hasattr(accumulator, "add_mark") \
             and os.environ.get("FASTQDEDUP_RECORD_ARENA", "1") != "0":
+        # Multi-host included: each host's arena holds ITS chunks' local
+        # first occurrences; every kept key's GLOBAL first position lives
+        # in exactly one host's arena (positions partition across hosts).
         record_store = _RecordArenaStore(len(input_files), memory_budget)
         cached_chunks = None
         recycle_bin = []
@@ -1052,7 +1258,8 @@ def deduplicate_cluster(
         _chunk_iter: Iterator = iter(_parallel_range_chunks(
             input_files, chunk_records, parallel_parts))
     else:
-        _chunk_iter = iter(_zip_chunks(input_files, chunk_records))
+        _chunk_iter = iter(_zip_chunks(input_files, chunk_records,
+                                       range_plan=range_plan))
     chunk_index = -1
     try:
         while True:
@@ -1063,11 +1270,16 @@ def deduplicate_cluster(
                 break
             chunk_index += 1
             if parallel_parts is not None:
-                base, chunks = item
+                part_base, chunks = item
+                base = shard_base + part_base
+                global_base += chunks[0].count
             else:
                 chunks = item
-                base = global_base
-            global_base += chunks[0].count
+                base = shard_base + range_base + global_base
+                global_base += chunks[0].count
+                if range_plan is None and not sharded_input \
+                        and chunk_index % nproc != pid:
+                    continue  # another host owns this chunk (strided mode)
             if len(chunks) > 1:
                 _validate_mates(chunks)
             _t = _time.perf_counter()
@@ -1157,6 +1369,9 @@ def deduplicate_cluster(
         logger.debug("pass1 totals: " + ", ".join(
             f"{k}={v:.2f}s" for k, v in _p1.items()))
 
+    if nproc > 1:
+        total_records, total_kept, discarded_records = sum_scalars(
+            total_records, total_kept, discarded_records)
     if filter_on_quality:
         logger.info(
             f"{discarded_records} records out of {total_records} "
@@ -1166,6 +1381,9 @@ def deduplicate_cluster(
                 f"({timer.get_difference()})")
 
     # ---------------- Pass 2: cluster and dissect ------------------------
+    # In multi-host runs each host contributes its partial key table; one
+    # padded all-gather merges them and the finalize step collapses keys
+    # seen by several hosts (summing counts, min-ing first positions).
     phase_timer = Timer()
 
     def debug_phase(name: str) -> None:
@@ -1175,20 +1393,59 @@ def deduplicate_cluster(
     collapsed = getattr(accumulator, "collapsed", False)
     byte_presence: Optional[np.ndarray] = None
     if collapsed and hasattr(accumulator, "byte_presence"):
-        # Collected at insertion during pass 1; saves the alphabet rescan
-        # of the key table.
+        # Collected at insertion during pass 1; saves every host the
+        # alphabet rescan of the merged key table.
         byte_presence = accumulator.byte_presence()
-    kd, ko, kc, kp = accumulator.export()
-    groups = _finalize_groups(kd, ko, kc, kp, single_table=collapsed)
-    # Recycle whichever export columns _finalize_groups did NOT alias into
-    # ``groups`` (the refcount gate makes release a no-op for aliased
-    # ones — those recycle at groups.dispose()).  The offsets column in
-    # particular is never aliased, and without this it re-faulted 240 MiB
-    # per run at 100M reads.
-    from .runtime import release as _release
-    for _buf in (kd, ko, kc, kp):
-        _release(_buf)
-    del kd, ko, kc, kp, _buf
+        if nproc > 1:
+            from .parallel.distributed import or_byte_presence
+            byte_presence = or_byte_presence(byte_presence)
+    if nproc > 1 and collapsed:
+        # The native accumulator already computed a content hash per
+        # key; exporting it (one O(capacity) sweep) and gathering it as
+        # an extra column means no host ever re-hashes the gathered
+        # table — the O(bytes) hashing happened shard-local, during
+        # pass 1.
+        kd, ko, kc, kp = accumulator.export()
+        debug_phase("finalize/export")
+        h1 = accumulator.export_hashes()
+        from .native.loader import hash_ragged_native
+        h2 = hash_ragged_native(kd, ko, seed=0xA5B35705F1E2D3C4)
+        debug_phase("finalize/local-hash")
+        # Metadata-first exchange: 40 B/row of metadata gathers, each
+        # host merges only the keys it owns, and every unique key's
+        # payload crosses the wire exactly once — ~2x less traffic than
+        # gathering every host's full table, with all merge work
+        # sharded 1/P (parallel/distributed.py).
+        from .parallel.distributed import exchange_merge_key_tables
+        kd2, ko2, kc2, kp2 = exchange_merge_key_tables(
+            kd, ko, kc, kp, h1, h2,
+            progress=lambda name: debug_phase(f"finalize/{name}"))
+        # The local export is fully represented in the merged table now;
+        # recycle its pooled buffers (refcount-gated no-ops if the
+        # accumulator still references them).
+        from .runtime import release as _release
+        for _buf in (kd, ko, kc, kp, h1, h2):
+            _release(_buf)
+        del kd, ko, kc, kp, h1, h2, _buf
+        groups = _finalize_groups(kd2, ko2, kc2, kp2, pre_merged=True)
+        # The uniform-length fast path aliases the merged columns into
+        # ``groups`` instead of copying; drop this frame's references so
+        # groups.dispose() can recycle them at the end of the run.
+        del kd2, ko2, kc2, kp2
+        debug_phase("finalize/group")
+    else:
+        kd, ko, kc, kp = allgather_key_tables(*accumulator.export())
+        groups = _finalize_groups(
+            kd, ko, kc, kp, single_table=(nproc == 1 and collapsed))
+        # Recycle whichever export columns _finalize_groups did NOT
+        # alias into ``groups`` (the refcount gate makes release a no-op
+        # for aliased ones — those recycle at groups.dispose()).  The
+        # offsets column in particular is never aliased, and without
+        # this it re-faulted 240 MiB per run at 100M reads.
+        from .runtime import release as _release
+        for _buf in (kd, ko, kc, kp):
+            _release(_buf)
+        del kd, ko, kc, kp, _buf
     accumulator.close()
     debug_phase("finalize-key-tables")
     if logger.isEnabledFor(logging.DEBUG):
@@ -1218,7 +1475,7 @@ def deduplicate_cluster(
     kept_mask = [np.zeros(len(c), dtype=bool) for c in groups.counts]
     # Single length group (the common case): key index == row index, so
     # the ~n-sized searchsorted map and per-call np.unique grouping are
-    # skipped entirely.
+    # skipped entirely — they are replicated on every host at P>1.
     single_group = len(groups.lengths) == 1
     group_of_key = None if single_group else np.searchsorted(
         groups.starts, np.arange(groups.n, dtype=np.int64),
@@ -1292,12 +1549,20 @@ def deduplicate_cluster(
     if single_group and len(part.cluster_of) == groups.n:
         # Vectorized: key row i is a singleton iff its cluster has one
         # member — a sequential gather+compare instead of a ~n-sized
-        # random scatter.
+        # random scatter (this mark is inherently global on every host).
         np.logical_or(kept_mask[0], sizes[part.cluster_of] == 1,
                       out=kept_mask[0])
     else:
         mark_indices(part.order[part.starts[sizes == 1]])
     debug_phase("singletons")
+
+    # Built-in methods at P>1: per-cluster dissection work (two-member
+    # closed form AND the big-cluster paths below) shards across hosts by
+    # cluster index; the kept key indices merge through ONE combined
+    # all-gather at the end.  A user-supplied strategy instead runs
+    # identically on every host (determinism is its documented contract).
+    distribute = nproc > 1 and method_name is not None
+    kept_local: List[np.ndarray] = []
 
     if method_name is not None:
         # Two-member components, closed form: connectivity implies the
@@ -1307,6 +1572,8 @@ def deduplicate_cluster(
         # (reference __init__.py:84,99-101).  Count ties break on key
         # bytes (== latin-1 string order), fetched only when needed.
         pair_starts = part.starts[sizes == 2]
+        if distribute:
+            pair_starts = pair_starts[pid::nproc]
         a_idx = part.order[pair_starts]
         b_idx = part.order[pair_starts + 1]
         ca = counts_arr[a_idx]
@@ -1333,11 +1600,18 @@ def deduplicate_cluster(
             swap = ties[a_wins]
             hi_idx[swap] = a_idx[swap]
             lo_idx[swap] = b_idx[swap]
-        mark_indices(hi_idx)
+        if distribute:
+            kept_local.append(hi_idx)
+        else:
+            mark_indices(hi_idx)
         if method_name == "directional":
             hi_c = counts_arr[hi_idx]
             lo_c = counts_arr[lo_idx]
-            mark_indices(lo_idx[2 * lo_c - 1 > hi_c])
+            lo_kept = lo_idx[2 * lo_c - 1 > hi_c]
+            if distribute:
+                kept_local.append(lo_kept)
+            else:
+                mark_indices(lo_kept)
         big = np.flatnonzero(sizes >= 3)
         debug_phase("two-member-closed-form")
     else:
@@ -1382,11 +1656,13 @@ def deduplicate_cluster(
                 np.arange(total, dtype=np.int64)
 
         big_sizes = part.ends[big] - part.starts[big]
+        owned = np.arange(len(big)) % nproc == pid if distribute \
+            else np.ones(len(big), dtype=bool)
         # Clusters up to 64 members dissect TOGETHER in one lockstep
         # vectorized pass (dissect_indices_batched): at production scale
         # there are ~a million of them and per-cluster Python setup alone
         # costs minutes.  Larger clusters use the per-cluster CSR path.
-        batch_mask = big_sizes <= 64 \
+        batch_mask = owned & (big_sizes <= 64) \
             if method_name is not None else np.zeros(len(big), dtype=bool)
         bsel = np.flatnonzero(batch_mask)
         if len(bsel):
@@ -1411,10 +1687,14 @@ def deduplicate_cluster(
             kept_b = dissect_indices_batched(
                 method_name, counts_arr[members_b], rank_b, lens,
                 el_i[epos] + eoff, el_j[epos] + eoff)
-            mark_indices(members_b[kept_b])
+            kept_idx = members_b[kept_b]
+            if distribute:
+                kept_local.append(kept_idx)
+            else:
+                mark_indices(kept_idx)
             debug_phase(f"batched-dissection ({len(bsel)} clusters, "
                         f"{len(members_b)} members)")
-        for k in np.flatnonzero(~batch_mask):
+        for k in np.flatnonzero(owned & ~batch_mask):
             c = big[k]
             es, ee = span_starts[k], span_ends[k]
             members = part.order[part.starts[c]:part.ends[c]]
@@ -1422,9 +1702,13 @@ def deduplicate_cluster(
                 # Index-based vectorized dissection: no per-member Python
                 # tuples, CSR BFS instead of list scans — giant clusters
                 # (low-complexity libraries) stay near O(edges).
-                mark_indices(members[dissect_indices(
+                kept_idx = members[dissect_indices(
                     method_name, counts_arr[members],
-                    member_rank(members), el_i[es:ee], el_j[es:ee])])
+                    member_rank(members), el_i[es:ee], el_j[es:ee])]
+                if distribute:
+                    kept_local.append(kept_idx)
+                else:
+                    mark_indices(kept_idx)
                 continue
             # User-supplied strategy: scalar (count, str) oracle API.
             cluster_list = [(int(counts_arr[i]),
@@ -1436,6 +1720,15 @@ def deduplicate_cluster(
             for string in dict.fromkeys(chosen):
                 mark_key_bytes(string.encode("latin-1"))
 
+    if distribute:
+        # One combined gather for the two-member AND big-cluster shards.
+        from .parallel.distributed import allgather_int64
+        kept_all = allgather_int64(np.concatenate(kept_local)
+                                   if kept_local
+                                   else np.empty(0, dtype=np.int64))
+        if len(kept_all):
+            mark_indices(kept_all)
+
     debug_phase("large-cluster-loop")
     kept_total = int(sum(int(m.sum()) for m in kept_mask))
     logger.info(f"Found {kept_total} distinct reads "
@@ -1443,15 +1736,29 @@ def deduplicate_cluster(
                 f"({timer.get_difference()})")
 
     # ---------------- Pass 3: filtered rewrite ---------------------------
-    if record_store is not None and not record_store.abandoned:
+    arena_ok = record_store is not None and not record_store.abandoned
+    if nproc > 1 and record_store is not None:
+        # Both pass-3 paths synchronize through collectives, so every
+        # host must take the SAME one: if any host's arena overflowed
+        # its budget, all hosts fall back to the re-streaming writer.
+        (arena_ok_hosts,) = sum_scalars(int(arena_ok))
+        if arena_ok_hosts != nproc:
+            record_store.abandon()
+            arena_ok = False
+    if arena_ok:
         try:
             _write_from_record_store(output_files, groups, kept_mask,
-                                     record_store)
+                                     record_store, pid=pid, nproc=nproc,
+                                     shard_base=shard_base,
+                                     sharded_input=sharded_input)
         finally:
             record_store.dispose()
     else:
         _filter_and_write(input_files, output_files, check_slices, groups,
-                          kept_mask, chunk_records, cached_chunks)
+                          kept_mask, chunk_records, cached_chunks,
+                          pid=pid, nproc=nproc, shard_base=shard_base,
+                          sharded_input=sharded_input,
+                          range_plan=range_plan, range_base=range_base)
     logger.info(f"Filtered FASTQ files based on distinct reads from each "
                 f"cluster. ({timer.get_difference()}) ")
     # The run is done with the key table: recycle its backing buffers
@@ -1469,7 +1776,10 @@ def deduplicate_cluster(
 
 def _write_from_record_store(output_files: List[str], groups: KeyGroups,
                              kept_mask: List[np.ndarray],
-                             store: _RecordArenaStore) -> None:
+                             store: _RecordArenaStore,
+                             pid: int = 0, nproc: int = 1,
+                             shard_base: int = 0,
+                             sharded_input: bool = False) -> None:
     """Pass 3 via the record arena: gather the kept keys' pre-rendered
     first-occurrence records (captured at insert time in pass 1) and
     stream them to the compressors — the inputs are never re-read.
@@ -1477,6 +1787,16 @@ def _write_from_record_store(output_files: List[str], groups: KeyGroups,
     Emits the identical byte stream to :func:`_filter_and_write`: parts
     are walked in chunk order, rows within a part in ascending record
     position, which IS file order.
+
+    Multi-host strided mode mirrors :func:`_filter_and_write`'s merge:
+    every kept key's GLOBAL first position lives in exactly one host's
+    arena (the host that ingested its chunk — a global first occurrence
+    is necessarily that host's local first insert), so each host gathers
+    its own kept records, writes raw per-chunk part files, and process 0
+    streams the parts in chunk order through one compressor.  Sharded-
+    input mode writes each host's own output files directly: arena
+    positions already carry the shard base, so intersecting with the
+    global kept set selects exactly this shard's records.
     """
     import queue
     import threading
@@ -1486,7 +1806,20 @@ def _write_from_record_store(output_files: List[str], groups: KeyGroups,
     from .runtime import release
 
     kept_sorted = np.sort(_kept_first_positions(groups, kept_mask))
-    writers = [xopen(f, "wb", compresslevel=1) for f in output_files]
+    distributed = nproc > 1 and not sharded_input
+    writers: List = []
+    parts_dirs: List[str] = []
+    if distributed:
+        # Raw per-chunk part files on a shared filesystem; process 0
+        # compresses after the barrier (same layout as _filter_and_write).
+        from .parallel.distributed import barrier
+        parts_dirs = [f + ".parts" for f in output_files]
+        if pid == 0:
+            for d in parts_dirs:
+                os.makedirs(d, exist_ok=True)
+        barrier("fastqdedup:arena-parts-dirs")
+    else:
+        writers = [xopen(f, "wb", compresslevel=1) for f in output_files]
     write_queue: "queue.Queue" = queue.Queue(maxsize=8)
     write_error: List[BaseException] = []
 
@@ -1502,10 +1835,16 @@ def _write_from_record_store(output_files: List[str], groups: KeyGroups,
                 if pending is not None:
                     release(pending)
                 return
-            index, payload = item
+            index, chunk_id, payload = item
             try:
                 if not write_error:
-                    writers[index].write(payload)
+                    if distributed:
+                        _compress_part_payload(
+                            payload, output_files[index]).tofile(
+                            os.path.join(parts_dirs[index],
+                                         f"{chunk_id:016d}.bin"))
+                    else:
+                        writers[index].write(payload)
                     del item
                     if pending is not None:
                         release(pending)  # refcount-gated
@@ -1534,10 +1873,14 @@ def _write_from_record_store(output_files: List[str], groups: KeyGroups,
             rows = np.searchsorted(positions, want)
             # Every kept first_pos is the position of a record that
             # inserted its key, so it must be present in the store.
+            # (Multi-host: a part's position span lies inside ONE chunk
+            # this host ingested, so every kept first position in the
+            # span is this host's local first insert — present here.)
             if rows[-1] >= len(positions) or \
                     not np.array_equal(positions[rows], want):
                 raise RuntimeError(
                     "record arena is missing kept first occurrences")
+            chunk_id = store.chunk_ids[part_index]
             for index in range(len(output_files)):
                 payload, bounds = store.parts[index][part_index]
                 out_bounds = np.zeros(len(rows) + 1, dtype=np.int64)
@@ -1546,7 +1889,7 @@ def _write_from_record_store(output_files: List[str], groups: KeyGroups,
                 selected = gather_ragged_native(payload, bounds, rows,
                                                 out_bounds)
                 if len(selected):
-                    write_queue.put((index, selected))
+                    write_queue.put((index, chunk_id, selected))
                 # Drop this frame's binding so the write worker's
                 # refcount-gated release can recycle the gather buffer.
                 selected = None
@@ -1557,6 +1900,13 @@ def _write_from_record_store(output_files: List[str], groups: KeyGroups,
             writer.close()
         if write_error:
             raise write_error[0]
+    if distributed:
+        from .parallel.distributed import barrier
+        barrier("fastqdedup:arena-parts-written")
+        if pid == 0:
+            for out, parts_dir in zip(output_files, parts_dirs):
+                _merge_output_parts(out, parts_dir)
+        barrier("fastqdedup:arena-output-merged")
 
 
 def _filter_and_write(input_files: List[str], output_files: List[str],
@@ -1564,8 +1914,13 @@ def _filter_and_write(input_files: List[str], output_files: List[str],
                       groups: KeyGroups, kept_mask: List[np.ndarray],
                       chunk_records: int,
                       cached_chunks: Optional[
-                          List[Tuple[int, Tuple[FastqChunk, ...]]]] = None
-                      ) -> None:
+                          List[Tuple[int, Tuple[FastqChunk, ...]]]] = None,
+                      pid: int = 0, nproc: int = 1,
+                      shard_base: int = 0,
+                      sharded_input: bool = False,
+                      range_plan: Optional[
+                          List[Tuple[int, int, int]]] = None,
+                      range_base: int = 0) -> None:
     """Second pass: write the first record matching each kept key
     (reference filter_fastq_files_on_set, __init__.py:189-206; no quality
     filter is applied here, matching the reference's behavior).
@@ -1574,6 +1929,11 @@ def _filter_and_write(input_files: List[str], output_files: List[str],
     the inputs.  Compression runs on a writer thread (the native zlib
     writer releases the GIL), overlapping with membership computation of
     the next chunk.
+
+    Multi-host: each host renders the chunks it owns (first-wins needs no
+    claim state — pass 1's first_pos decides), writes raw per-chunk part
+    files, and process 0 streams the parts in chunk order through one
+    compressor so the final file is byte-identical to a single-host run.
     """
     import queue
     import threading
@@ -1595,16 +1955,40 @@ def _filter_and_write(input_files: List[str], output_files: List[str],
     # first_pos is by construction a position OF that key, so the emit
     # set is exactly {first_pos(k) : k kept}.  Pass 3 therefore needs no
     # key recomputation and no lookup structure at all: scatter the kept
-    # first positions into a byte mask over the record range and read one
-    # mask window per chunk.  (An earlier design rebuilt a hash
+    # first positions into a byte mask over this host's record range and
+    # read one mask window per chunk.  (An earlier design rebuilt a hash
     # table over kept key BYTES and probed it per record — minutes at
     # 100M reads; the position identity makes it O(kept) setup.)
     kept_fps = _kept_first_positions(groups, kept_mask)
-    mask_size = int(kept_fps.max()) + 1 if len(kept_fps) else 0
+    # Keep the mask local: this host renders only positions in
+    # [shard_base, shard_base + _SHARD_STRIDE); kept keys first seen by
+    # another shard can never emit here.  (Strided multi-host mode has
+    # shard_base 0 and a global mask — positions in chunks this host
+    # does not render are simply never read.)
+    local_fps = kept_fps[(kept_fps >= shard_base)
+                         & (kept_fps < shard_base + _SHARD_STRIDE)]
+    local_fps = local_fps - shard_base
+    mask_size = int(local_fps.max()) + 1 if len(local_fps) else 0
     emit_mask = np.zeros(mask_size, dtype=bool)
-    emit_mask[kept_fps] = True
+    emit_mask[local_fps] = True
     _mark("emit-set-build")
-    writers = [xopen(f, "wb", compresslevel=1) for f in output_files]
+    # Sharded-input mode: this host's files are wholly its own — plain
+    # single-host writing (no parts, no merge); only the global record
+    # base carries the shard offset.
+    distributed = nproc > 1 and not sharded_input
+    if distributed:
+        # Raw per-chunk part files; process 0 compresses after the
+        # barrier.  Assumes a shared filesystem (or a post-run copy of
+        # each host's parts into one place).
+        writers = []
+        parts_dirs = [f + ".parts" for f in output_files]
+        if pid == 0:
+            for d in parts_dirs:
+                os.makedirs(d, exist_ok=True)
+        from .parallel.distributed import barrier
+        barrier("fastqdedup:parts-dirs")
+    else:
+        writers = [xopen(f, "wb", compresslevel=1) for f in output_files]
     write_queue: "queue.Queue" = queue.Queue(maxsize=8)
     write_error: List[BaseException] = []
 
@@ -1624,9 +2008,18 @@ def _filter_and_write(input_files: List[str], output_files: List[str],
     worker.start()
     if cached_chunks is not None:
         source = iter(cached_chunks)  # entries carry (base, chunks)
+    elif range_plan is not None:
+        def _range_source():
+            running = range_base
+            for c in _zip_chunks(input_files, chunk_records,
+                                 range_plan=range_plan):
+                yield running, c
+                running += c[0].count
+        source = _range_source()
     else:
-        source = ((i * chunk_records, c) for i, c in
-                  enumerate(_zip_chunks(input_files, chunk_records)))
+        source = ((shard_base + i * chunk_records, c) for i, c in
+                  enumerate(_zip_chunks(input_files, chunk_records))
+                  if sharded_input or i % nproc == pid)
     _acc = {"iter": 0.0, "member": 0.0, "render": 0.0}
     try:
         from .io.fastq import render_fastq_records
@@ -1635,8 +2028,9 @@ def _filter_and_write(input_files: List[str], output_files: List[str],
             _now = _time.perf_counter()
             _acc["iter"] += _now - _tl
             _tl = _now
-            lo = min(chunk_base, mask_size)
-            hi = min(chunk_base + chunks[0].count, mask_size)
+            local_base = chunk_base - shard_base
+            lo = min(local_base, mask_size)
+            hi = min(local_base + chunks[0].count, mask_size)
             emit_rows = np.flatnonzero(emit_mask[lo:hi])
             _now = _time.perf_counter()
             _acc["member"] += _now - _tl
@@ -1644,7 +2038,13 @@ def _filter_and_write(input_files: List[str], output_files: List[str],
             # Vectorized serialization, one compressor call per chunk.
             for index, chunk in enumerate(chunks):
                 payload = render_fastq_records(chunk, emit_rows)
-                if len(payload):
+                if distributed:
+                    if len(payload):
+                        _compress_part_payload(
+                            payload, output_files[index]).tofile(
+                            os.path.join(parts_dirs[index],
+                                         f"{chunk_base:016d}.bin"))
+                elif len(payload):
                     write_queue.put((index, payload))
             _now = _time.perf_counter()
             _acc["render"] += _now - _tl
@@ -1661,3 +2061,9 @@ def _filter_and_write(input_files: List[str], output_files: List[str],
         _mark("writer-drain")
         if write_error:
             raise write_error[0]
+    if distributed:
+        barrier("fastqdedup:parts-written")
+        if pid == 0:
+            for out, parts_dir in zip(output_files, parts_dirs):
+                _merge_output_parts(out, parts_dir)
+        barrier("fastqdedup:output-merged")

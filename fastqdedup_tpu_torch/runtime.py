@@ -7,7 +7,7 @@ host memory management shared with the JAX package.
 """
 
 import os
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -326,9 +326,13 @@ def device() -> "torch.device":
     """The torch device pass 2 runs on, from ``FASTQDEDUP_TORCH_DEVICE``
     (default ``cuda``).
 
-    Asking for CUDA where none is available raises: the pipeline never
-    carries on silently on the CPU.  The CPU device is for tests and
-    hosts without a card, and must be asked for explicitly."""
+    Plain ``cuda`` means ``cuda:{LOCAL_RANK % device_count}``: each
+    process of a job started with one process per card (``torchrun``
+    sets ``LOCAL_RANK``) takes its own card, and processes beyond the
+    card count share them.  Asking for CUDA where none is available
+    raises: the pipeline never carries on silently on the CPU.  The CPU
+    device is for tests and hosts without a card, and must be asked for
+    explicitly."""
     import torch
 
     dev = torch.device(os.environ.get("FASTQDEDUP_TORCH_DEVICE", "cuda"))
@@ -336,4 +340,30 @@ def device() -> "torch.device":
         raise RuntimeError(
             f"FASTQDEDUP_TORCH_DEVICE={dev} but torch.cuda.is_available() "
             f"is False; set FASTQDEDUP_TORCH_DEVICE=cpu to run on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
     return dev
+
+
+def local_devices() -> "List[torch.device]":
+    """The devices this process spreads its device work over: every
+    visible card for a single process asked for plain ``cuda``, else the
+    one :func:`device` names (a multi-process job runs one process per
+    card; the CPU device is one device)."""
+    import torch
+
+    from .parallel.distributed import process_shape
+
+    dev = device()
+    if os.environ.get("FASTQDEDUP_TORCH_DEVICE", "cuda") == "cuda" \
+            and process_shape()[1] == 1:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def local_device_count() -> int:
+    """How many local devices component labels may shard over; the
+    engine takes the device mesh only when this is above 1."""
+    return len(local_devices())

@@ -206,7 +206,6 @@ def test_edit_pipeline_on_card_matches_cpu(cuda_device, tmp_path,
     src = tmp_path / "in.fastq.gz"
     with gzip.open(src, "wt") as f:
         f.write("".join(records))
-    monkeypatch.setenv("FASTQDEDUP_H2D_RATE", "1e15")
     outs = {}
     for dev in ("cpu", "cuda"):
         monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", dev)

@@ -289,8 +289,16 @@ def _force_route(monkeypatch, route):
     if route == "cpu":
         return
     monkeypatch.setattr(torch_engine, "_edit_on_card", lambda dev: True)
-    rate = "1e15" if route == "card-resident" else "1.0"
-    monkeypatch.setenv("FASTQDEDUP_H2D_RATE", rate)
+    if route == "card-slow-wire":
+        # A measured rate of 1 B/s still takes the card's route: the
+        # host C DP is never asked.
+        monkeypatch.setenv("FASTQDEDUP_H2D_RATE", "1")
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("edit verification left the card")
+
+        from fastqdedup_tpu_torch.native import loader
+        monkeypatch.setattr(loader, "edit_verify_native", refuse)
 
 
 @pytest.mark.parametrize("route,d", [
@@ -299,9 +307,9 @@ def _force_route(monkeypatch, route):
 ])
 def test_build_partition_edit_matches_jax(monkeypatch, route, d):
     """More than HOST_LIMIT keys of lengths 29-31: the CPU branch
-    (full-row DP), the card's branch forced on the CPU with the key
-    matrix resident (indexed kernel wrapper), and the slow-wire crossover
-    to the host C DP."""
+    (full-row DP), and the card's branch forced on the CPU with the key
+    matrix resident (indexed kernel wrapper), which a slow measured wire
+    does not divert to the host C DP."""
     keys = _edit_groups(11)
     assert len(keys) > torch_engine.HOST_LIMIT
     assert len({len(k) for k in keys}) == 3

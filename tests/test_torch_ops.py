@@ -265,9 +265,21 @@ def test_edit_above_host_limit_matches_jax():
 
 
 def test_require_mesh_raises(monkeypatch):
+    """The JAX package's threshold rule: under FASTQDEDUP_REQUIRE_MESH=1
+    an edge list below FASTQDEDUP_MESH_MIN_EDGES raises; at or above it
+    the labels come from the device mesh (here 4 shards on the CPU)."""
+    from fastqdedup_tpu_torch.parallel import sharded
+
     monkeypatch.setenv("FASTQDEDUP_REQUIRE_MESH", "1")
-    with pytest.raises(RuntimeError, match="REQUIRE_MESH"):
+    monkeypatch.setenv("FASTQDEDUP_MESH_MIN_EDGES", "2")
+    monkeypatch.setattr(runtime, "local_device_count", lambda: 4)
+    with pytest.raises(RuntimeError, match="FASTQDEDUP_MESH_MIN_EDGES"):
         torch_engine._component_labels(3, np.array([0]), np.array([1]))
+    before = sharded.MESH_COMPONENT_RUNS
+    labels = torch_engine._component_labels(5, np.array([0, 3]),
+                                            np.array([1, 4]))
+    assert sharded.MESH_COMPONENT_RUNS == before + 1
+    assert labels.tolist() == [0, 0, 2, 3, 3]
 
 
 def test_device_from_environment(monkeypatch):

@@ -205,8 +205,12 @@ def test_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):
 
 
 def test_device_quality_filter_not_ported(tmp_path, monkeypatch):
-    src = str(tmp_path / "in.fastq.gz")
-    _write_fastq(src, _reads(random.Random(7), 20, 12))
+    """FASTQDEDUP_DEVICE_QUALITY=1 (the float32 device filter, ported as
+    ops/phred.py): both packages write the same bytes under it.  Every
+    seventh read is all Q30, whose float32 mean sits on the 0.001
+    threshold, and 5% are low quality, so the filter drops reads."""
+    reads = _reads(random.Random(7), 400, 20)
+    reads = [(name, seq, "?" * len(seq) if i % 7 == 0 else qual)
+             for i, (name, seq, qual) in enumerate(reads)]
     monkeypatch.setenv("FASTQDEDUP_DEVICE_QUALITY", "1")
-    with pytest.raises(NotImplementedError, match="phred"):
-        torch_dedup([src], [str(tmp_path / "out.fastq.gz")], None)
+    _run_both(tmp_path, [reads])
