@@ -12,10 +12,18 @@ Phases, each printing one JSON line to stdout:
 2. ``build`` — compiles every kernel source (``csrc/*.cu``) with nvcc,
    one process per source, into one library;
 3. ``kernel`` — each kernel against its plain PyTorch version on the card,
-   exact equality, at the main path's shapes plus edge cases (d = 0 and
-   2, widths not a multiple of 16, pad rows; for the edit kernel d = 0,
-   2, 3 and 6, empty strings, length gaps above d, lengths 99/100/101,
-   arbitrary pad bytes, and the indexed entry), with CUDA-event times;
+   exact equality, at the main path's shapes plus edge cases (for the
+   all-pairs kernel both of its routes: widths 2 to 300, ``length <= d``,
+   alphabets 5 to 24, N != M tiles, buckets of pad rows only, K = 1 and
+   odd K, d = 0 to 2; for the edit kernel d = 0, 2, 3 and 6, empty
+   strings, length gaps above d, lengths 99/100/101, arbitrary pad bytes,
+   and the indexed entry).  A timed line carries the kernel's time from
+   CUDA-graph replays (``ms``, no host gaps; inputs L2-warm), the time of
+   one launch between two events (``ms_one_launch``, which includes the
+   host's launch path), the plain version's time taken in turns with it,
+   and the kernel's bound on this card: the bytes and operations counted
+   from the shapes (``kernel_bound``), the larger of their two times, and
+   the share of it the kernel reached;
 4. ``pipeline`` — ``deduplicate_cluster`` with its defaults (Hamming d=1,
    directional, error rate 0.001) on 1M generated 100 bp reads; the
    sha256 of the decompressed output must equal the JAX package's;
@@ -50,12 +58,20 @@ Phases, each printing one JSON line to stdout:
    the card and on the CPU device must write the same bytes.
 
 Then one ``{"kernels": [...]}`` line (launch counts of phases 4-5 and 7,
-times and errors of phase 3), the ``nvidia-smi`` name/power-limit line,
+times, bounds and errors of phase 3), the ``nvidia-smi`` name/power-limit line,
 and the result line ``{"ok": true, "device": {...}}`` last.  Any failed
 check, or a child process that fails, exits non-zero before the result
 line.  Without CUDA, or without the package beside this script, it exits
 2 and prints no result.  ``--distributed-worker`` is phase 7's child
 process, started by the script itself.
+
+Three shorter runs for measurements, none of which prints a result
+line: ``python3 chip_smoke.py --kernels`` stops after phase 3, and
+``python3 chip_smoke.py --repeats N default umi12 dense`` runs each named
+input once and then N more times (sha256 checked every time) and prints
+the seconds of every run with their median;
+``python3 chip_smoke.py --phases`` builds the all-pairs kernel with its
+phase timestamps compiled in and prints where a block spends a tile.
 
 The expected sha256 values were computed with the JAX package on the CPU
 from byte-identical inputs: generate each input with
@@ -136,6 +152,61 @@ KERNELS = {
         "fastqdedup_tpu_torch/csrc/edit.cu",
         "fastqdedup_tpu/ops/pallas_edit.py:106"),
 }
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates, full
+# 700 W power limit): device-memory bytes/s and operations/s by type.
+# The int32 rate is not on the data sheet: half of the SM's 128 fp32
+# lanes issue integer instructions, and the sheet's 67 TFLOP/s of fp32
+# counts two operations per lane and clock.
+H100_BYTES_PER_S = 3.35e12
+H100_OPS_PER_S = {"int8": 1979e12, "int32": 67e12 / 4}
+NO_LIBRARY = "none: no single PyTorch call computes this function"
+
+
+def pairs_within_cost(batch: int, n: int, m: int, l_pad: int, length: int,
+                      alphabet_pad: int, same_rows: bool) -> dict:
+    """Bytes and operations of the all-pairs kernel: every input row and
+    every packed output byte once (a bucket's rows are both operands and
+    count once); one int8 multiply-add per pair, real position and
+    alphabet symbol, as the one-hot product counts them."""
+    rows = n if same_rows else n + m
+    return {"bytes": batch * (rows * l_pad + n * m // 8),
+            "ops": 2 * batch * n * m * length * alphabet_pad,
+            "ops_type": "int8"}
+
+
+def rowwise_cost(p: int, lanes: int) -> dict:
+    """Bytes and operations of the rowwise kernel: two 32-bit lanes read
+    per pair and lane, one byte written per pair; six integer
+    instructions per lane (xor, two shift-ors, mask, popcount, add)."""
+    return {"bytes": 2 * p * lanes * 4 + p, "ops": 6 * p * lanes,
+            "ops_type": "int32"}
+
+
+def banded_cost(len_a: np.ndarray, len_b: np.ndarray, d: int, l_pad: int,
+                indexed: bool) -> dict:
+    """Bytes and operations of the banded edit kernel on these lengths:
+    both rows, both lengths and one output byte per pair (and two int32
+    indices through the indexed entry); four integer operations (compare,
+    two minima, add) per cell of the band, 2d + 1 cells per row of a, for
+    the pairs whose lengths differ by at most d (the others stop at
+    once)."""
+    p = len(len_a)
+    runs = np.abs(len_a.astype(np.int64) - len_b) <= d
+    cells = int(len_a[runs].astype(np.int64).sum()) * (2 * d + 1)
+    return {"bytes": p * (2 * l_pad + 8 + 1 + (8 if indexed else 0)),
+            "ops": 4 * cells, "ops_type": "int32"}
+
+
+def kernel_bound(cost: dict) -> dict:
+    """The least time the card could take for ``cost``: the larger of its
+    bytes over the memory rate and its operations over their peak."""
+    by_bytes = cost["bytes"] / H100_BYTES_PER_S * 1e3
+    by_ops = cost["ops"] / H100_OPS_PER_S[cost["ops_type"]] * 1e3
+    return {"bytes": cost["bytes"], "ops": cost["ops"],
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def emit(obj) -> None:
@@ -274,9 +345,12 @@ def decompressed_sha256(path: str) -> str:
 # Phase 3: kernels against their plain versions
 
 
-def cuda_ms(fn, reps: int = 7) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, after two
-    warm-up runs."""
+def event_ms(fn, reps: int = 7) -> list:
+    """CUDA-event times of ``reps`` runs of ``fn``, after two warm-up
+    runs.  The time runs from one event to the next on the stream, so it
+    includes whatever the host spends between them before the device has
+    work: right for a plain version of milliseconds, too long for a
+    kernel of microseconds."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -289,7 +363,50 @@ def cuda_ms(fn, reps: int = 7) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def cuda_ms(fn, reps: int = 7) -> float:
+    """Median of ``event_ms``."""
+    return statistics.median(event_ms(fn, reps))
+
+
+def graph_ms(fn, inner: int = 20, reps: int = 7) -> list:
+    """Times of one call of ``fn`` on the device alone: ``inner`` calls
+    captured in a CUDA graph, the graph replayed ``reps`` times between
+    events.  The launches follow each other with no host in between, and
+    the inputs stay in the L2 cache from one to the next."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return times
+
+
+def timed_in_turns(kernel_fn, plain_fn) -> dict:
+    """Kernel, plain, plain, kernel on one card in one call; medians over
+    both turns."""
+    k1, p1 = graph_ms(kernel_fn), event_ms(plain_fn, 5)
+    p2, k2 = event_ms(plain_fn, 5), graph_ms(kernel_fn)
+    return {"ms": statistics.median(k1 + k2),
+            "ms_one_launch": cuda_ms(kernel_fn),
+            "plain_ms": statistics.median(p1 + p2),
+            "timing": "ms: CUDA-graph replays of 20 launches, L2-warm; "
+                      "ms_one_launch and plain_ms: one call between two "
+                      "events, L2-warm"}
 
 
 def bit_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -302,30 +419,39 @@ def bit_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(torch.bitwise_xor(got, want).any())
 
 
-def bucket_batch(rng, k: int, s: int, length: int, l_pad: int):
+def bucket_batch(rng, k: int, s: int, length: int, l_pad: int,
+                 alphabet: int = 5, empty_every: int = 0):
     """[K, S, Lp] buckets as the pipeline builds them: near-duplicates of
-    one row per bucket (0-2 substitutions, symbols ACGTN), a random number
-    of 0xFF pad rows, 0xFF past the real width."""
-    rows = np.repeat(rng.integers(0, 5, (k, 1, length), dtype=np.uint8),
-                     s, axis=1)
+    one row per bucket (0-2 substitutions, symbols below ``alphabet``), a
+    random number of 0xFF pad rows, 0xFF past the real width; every
+    ``empty_every``-th bucket is pad rows only."""
+    rows = np.repeat(rng.integers(0, alphabet, (k, 1, length),
+                                  dtype=np.uint8), s, axis=1)
     kk, ss = np.indices((k, s))
     for _ in range(2):
         sel = rng.random((k, s)) < 0.5
         pos = rng.integers(0, length, (k, s))
         rows[kk[sel], ss[sel], pos[sel]] = rng.integers(
-            0, 5, int(sel.sum()), dtype=np.uint8)
+            0, alphabet, int(sel.sum()), dtype=np.uint8)
     batch = np.full((k, s, l_pad), 0xFF, dtype=np.uint8)
     batch[:, :, :length] = rows
     fill = rng.integers(2, s + 1, k)
+    if empty_every:
+        fill[::empty_every] = 0
     batch[np.arange(s)[None, :] >= fill[:, None]] = 0xFF
     return torch.from_numpy(batch)
 
 
-def tile_pair(rng, n: int, length: int, pad_rows: int):
-    a = rng.integers(0, 5, (n, length), dtype=np.uint8)
-    b = a[rng.permutation(n)].copy()
-    pos = rng.integers(0, length, n)
-    b[np.arange(n), pos] = rng.integers(0, 5, n, dtype=np.uint8)
+def tile_pair(rng, n: int, length: int, pad_rows: int, m: int = 0,
+              alphabet: int = 5):
+    """Rows a [N, L] and b [M, L] (M = N by default): b's rows are rows of
+    a with one symbol redrawn, and the last ``pad_rows`` of both are
+    0xFF."""
+    m = m or n
+    a = rng.integers(0, alphabet, (n, length), dtype=np.uint8)
+    b = a[rng.integers(0, n, m)].copy()
+    pos = rng.integers(0, length, m)
+    b[np.arange(m), pos] = rng.integers(0, alphabet, m, dtype=np.uint8)
     if pad_rows:
         a[-pad_rows:] = 0xFF
         b[-pad_rows:] = 0xFF
@@ -382,7 +508,7 @@ def check_kernels(dev) -> dict:
     summary = {}
 
     def record(name, case, got, want, kernel_fn, plain_fn, main,
-               timed=None):
+               timed=None, cost=None, extra=None):
         err = bit_err(got.cpu(), want.cpu())
         ones = int(want.to(torch.uint8).cpu().numpy().view(np.uint8)
                    .astype(np.uint64).sum()) if want.dtype == torch.bool \
@@ -390,57 +516,101 @@ def check_kernels(dev) -> dict:
         line = {"phase": "kernel", "name": name, "case": case,
                 "max_abs_err": err, "true_outputs": ones}
         if main if timed is None else timed:
-            line["ms"] = cuda_ms(kernel_fn)
-            line["plain_ms"] = cuda_ms(plain_fn)
+            line.update(timed_in_turns(kernel_fn, plain_fn))
+            line.update(kernel_bound(cost))
+            line["share_of_bound"] = line["bound_ms"] / line["ms"]
+            line["library_ms"] = None
+            line["library"] = NO_LIBRARY
+            if extra is not None:
+                line.update(extra())
         emit(line)
         if err != 0.0:
             fail(f"{name} {case}: kernel disagrees with its plain version")
+        if line.get("share_of_bound", 0.0) > 1.05:
+            fail(f"{name} {case}: {line['ms']} ms is under the card's "
+                 f"bound of {line['bound_ms']} ms")
         entry = summary.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if main:
-            entry["ms"] = line["ms"]
-            entry["plain_ms"] = line["plain_ms"]
+            entry.update({k: v for k, v in line.items() if k not in (
+                "phase", "name", "max_abs_err", "true_outputs")})
 
     # Kernel 1: buckets.  Main path: d=1 on the 50-symbol segment
     # complement of 100 bp keys (Lp 64), the three size classes at their
-    # batch sizes.
-    for s, k, length, d, main in ((128, 2048, 50, 1, True),
-                                  (512, 256, 50, 1, False),
-                                  (2048, 16, 50, 1, False),
-                                  (128, 256, 50, 0, False),
-                                  (128, 256, 50, 2, False),
-                                  (128, 256, 37, 1, False),
-                                  (128, 16, 2, 2, False)):
-        l_pad, a_pad = hk._pad_dims(length, 5)
-        batch = bucket_batch(rng, k, s, length, l_pad).to(dev)
+    # batch sizes, all timed.  Then the edges of both routes (tensor cores
+    # up to alphabet_pad 8, SIMT above): widths that fill neither a
+    # 16-symbol group nor a word, length <= d, Lp 16 and above 256, wider
+    # alphabets, buckets of pad rows only, K = 1 and odd K, d = 0 to 2.
+    # (S, K, length, d, alphabet, Lp or 0 for the callers' padding, timed)
+    for s, k, length, d, alphabet, l_pad, timed in (
+            (128, 2048, 50, 1, 5, 0, True),
+            (512, 256, 50, 1, 5, 0, True),
+            (2048, 16, 50, 1, 5, 0, True),
+            (128, 256, 50, 0, 5, 0, False),
+            (128, 256, 50, 2, 5, 0, False),
+            (128, 67, 37, 1, 5, 0, False),
+            (128, 16, 2, 2, 5, 0, False),
+            (128, 3, 100, 1, 5, 0, False),
+            (128, 1, 16, 0, 5, 16, False),
+            (128, 5, 37, 2, 5, 256, False),
+            (256, 3, 300, 1, 5, 0, False),
+            (128, 33, 50, 1, 8, 0, False),
+            (512, 3, 37, 2, 8, 0, False),
+            (128, 33, 50, 1, 12, 0, False),
+            (256, 5, 37, 0, 24, 0, False),
+            (128, 3, 300, 2, 24, 0, False),
+            (128, 4, 2, 2, 24, 0, False)):
+        padded, a_pad = hk._pad_dims(length, alphabet)
+        l_pad = l_pad or padded
+        batch = bucket_batch(rng, k, s, length, l_pad, alphabet,
+                             empty_every=0 if timed else 3).to(dev)
         got = hk.bucket_within_packed(batch, length, d, a_pad)
         torch.cuda.synchronize()
         want = hk.pairs_within_plain(batch, batch, length, d, a_pad)
         record("bucket_within_packed",
-               f"S={s} K={k} L={length} Lp={l_pad} d={d}", got, want,
-               lambda: hk.bucket_within_packed(batch, length, d, a_pad),
+               f"S={s} K={k} L={length} Lp={l_pad} d={d} Ap={a_pad}", got,
+               want, lambda: hk.bucket_within_packed(batch, length, d, a_pad),
                lambda: hk.pairs_within_plain(batch, batch, length, d,
-                                             a_pad), main)
+                                             a_pad),
+               (s, k) == (128, 2048), timed,
+               pairs_within_cost(k, s, s, l_pad, length, a_pad, True))
         del batch, got, want
 
-    # Kernel 2: the 2048 x 2048 tile sweep at 100 bp keys.
-    for n, length, d, pad, main in ((2048, 100, 1, 0, True),
-                                    (2048, 100, 0, 300, False),
-                                    (256, 37, 2, 40, False)):
-        a, b = tile_pair(rng, n, length, pad)
+    # Kernel 2: the 2048 x 2048 tile sweep at 100 bp keys; then N != M,
+    # pad rows, both routes and long rows.
+    # (N, M, length, d, pad rows, alphabet, main)
+    for n, m, length, d, pad, alphabet, main in (
+            (2048, 2048, 100, 1, 0, 5, True),
+            (2048, 2048, 100, 0, 300, 5, False),
+            (256, 256, 37, 2, 40, 5, False),
+            (128, 384, 37, 2, 5, 5, False),
+            (2048, 128, 100, 1, 0, 8, False),
+            (128, 128, 16, 0, 0, 5, False),
+            (128, 256, 300, 2, 3, 5, False),
+            (256, 128, 50, 1, 7, 24, False),
+            (384, 128, 2, 2, 9, 12, False)):
+        a, b = tile_pair(rng, n, length, pad, m, alphabet)
         a, b = a.to(dev), b.to(dev)
-        got = hk.within_tile_packed(a, b, 5, d)
+        got = hk.within_tile_packed(a, b, alphabet, d)
         torch.cuda.synchronize()
-        l_pad, a_pad = hk._pad_dims(length, 5)
+        l_pad, a_pad = hk._pad_dims(length, alphabet)
         pa = torch.nn.functional.pad(a, (0, l_pad - length), value=0xFF)
         pb = torch.nn.functional.pad(b, (0, l_pad - length), value=0xFF)
         want = hk.pairs_within_plain(pa[None], pb[None], length, d,
                                      a_pad)[0]
+        # Timed on rows already padded to Lp: the wrapper's two padding
+        # calls are torch kernels of their own (ms_wrapper has them).
         record("within_tile_packed",
-               f"N=M={n} L={length} d={d} pad_rows={pad}", got, want,
-               lambda: hk.within_tile_packed(a, b, 5, d),
+               f"N={n} M={m} L={length} d={d} pad_rows={pad} Ap={a_pad}",
+               got, want,
+               lambda: hk._pairs_within_launch(
+                   "within_tile_packed", pa[None], pb[None], length, d,
+                   a_pad),
                lambda: hk.pairs_within_plain(pa[None], pb[None], length,
-                                             d, a_pad), main)
+                                             d, a_pad), main,
+               cost=pairs_within_cost(1, n, m, l_pad, length, a_pad, False),
+               extra=lambda: {"ms_wrapper": statistics.median(graph_ms(
+                   lambda: hk.within_tile_packed(a, b, alphabet, d)))})
 
     # Kernel 3: pair lists at the verifier's batch (2^21 pairs of 13
     # lanes: 100 bp keys, 8 symbols per lane).
@@ -453,7 +623,8 @@ def check_kernels(dev) -> dict:
         want = hk.rowwise_within_plain(a, b, d)
         record("rowwise_within_packed", f"P={p} lanes={lanes} d={d}", got,
                want, lambda: hk.rowwise_within_packed(a, b, d),
-               lambda: hk.rowwise_within_plain(a, b, d), main)
+               lambda: hk.rowwise_within_plain(a, b, d), main,
+               cost=rowwise_cost(p, lanes))
 
     # Kernel 4: one verification batch of the edit path (2^16 pairs of
     # 100 bp keys padded to 112), d = 1, through both entry points; then
@@ -468,7 +639,9 @@ def check_kernels(dev) -> dict:
         record(name, f"P={p} Lp=112 lengths 0/99-101 d={d}", got, want,
                lambda: ek.banded_within_edit_distance(a, la, b, lb, d),
                lambda: ek.banded_within_plain(a, la, b, lb, d), False,
-               timed=d == 1)
+               timed=d == 1,
+               cost=banded_cost(la.cpu().numpy(), lb.cpu().numpy(), d, 112,
+                                False))
     for d in (1, 6):
         # Lengths anywhere in [0, Lp]: most gaps exceed d.
         a, _, b, _ = edit_pairs(rng, 8192, d)
@@ -505,7 +678,9 @@ def check_kernels(dev) -> dict:
            gathered_plain(),
            lambda: ek.banded_within_edit_distance_indexed(keys, lens, ci,
                                                           cj, 1),
-           gathered_plain, True)
+           gathered_plain, True,
+           cost=banded_cost(lens[ci.long()].cpu().numpy(),
+                            lens[cj.long()].cpu().numpy(), 1, 112, True))
     return summary
 
 
@@ -952,7 +1127,107 @@ def check_quality(workdir: str, src: str) -> None:
              "CPU device's")
 
 
-def main() -> int:
+PHASES = ("stage and descriptors computed, products issued",
+          "next stage one-hot into the other buffer", "proxy fence",
+          "loads of the stage after issued", "wait for the products",
+          "threshold, pack, store", "block barrier", "loop back")
+
+
+def run_phases(dev) -> int:
+    """Where a block of the tensor-core kernel spends a tile: builds
+    ``csrc/hamming.cu`` with ``-DFQD_PHASE_TIMES`` into a library of its
+    own, launches the main bucket shape (S=128 K=2048 L=50 d=1) and prints
+    the median nanoseconds between the kernel's marks over all blocks,
+    stages 1 to 5 of each (one stage is one tile at this shape)."""
+    import ctypes
+
+    from fastqdedup_tpu_torch.ops import hamming_kernels as hk
+    from fastqdedup_tpu_torch.ops import kernel_lib
+
+    lib_path = os.path.join(os.path.dirname(kernel_lib.LIB_PATH),
+                            "libfqd_hamming_phases.so")
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    source = os.path.join(HERE, "fastqdedup_tpu_torch", "csrc",
+                          "hamming.cu")
+    built = subprocess.run(
+        [kernel_lib._nvcc(), *kernel_lib._ARCH, "-std=c++17", "-O3",
+         "-DFQD_PHASE_TIMES", "-Xcompiler", "-fPIC", "-shared", "-o",
+         lib_path, source], capture_output=True, text=True)
+    if built.returncode != 0:
+        fail(f"nvcc -DFQD_PHASE_TIMES failed:\n{built.stdout}{built.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.fqd_pairs_within_packed.argtypes = [
+        p, p, p, i, i, i, i, i64, i64, i, i, i, p]
+    lib.fqd_pairs_within_packed.restype = i
+    lib.fqd_phase_times_read.argtypes = [p]
+    lib.fqd_phase_times_read.restype = i
+    k, s, length, d = 2048, 128, 50, 1
+    l_pad, a_pad = hk._pad_dims(length, 5)
+    batch = bucket_batch(np.random.default_rng(2024), k, s, length,
+                         l_pad).to(dev)
+    out = torch.empty((k, s, s // 8), dtype=torch.uint8, device=dev)
+    for _ in range(5):
+        status = lib.fqd_pairs_within_packed(
+            batch.data_ptr(), batch.data_ptr(), out.data_ptr(), k, s, s,
+            l_pad, s * l_pad, s * l_pad, length, d, a_pad,
+            torch.cuda.current_stream().cuda_stream)
+        if status != 0:
+            fail(f"instrumented launch returned CUDA error {status}")
+    torch.cuda.synchronize()
+    if not torch.equal(out, hk.pairs_within_plain(batch, batch, length, d,
+                                                  a_pad)):
+        fail("instrumented kernel disagrees with its plain version")
+    times = np.zeros((512, 8, 8), dtype=np.int64)
+    status = lib.fqd_phase_times_read(times.ctypes.data)
+    if status != 0:
+        fail(f"reading the phase times returned CUDA error {status}")
+    blocks = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    marks = times[:blocks, 1:7].reshape(blocks, -1)
+    spans = np.diff(marks, axis=1)[:, :40].reshape(blocks, 5, 8)
+    emit({"phase": "phases", "case": f"S={s} K={k} L={length} d={d}",
+          "blocks": blocks, "stages_per_block": k / blocks,
+          "median_ns": {name: float(np.median(spans[:, :, j]))
+                        for j, name in enumerate(PHASES)},
+          "stage_median_ns": float(np.median(
+              times[:blocks, 2:7, 0] - times[:blocks, 1:6, 0]))})
+    return 0
+
+
+def run_repeats(repeats: int, names) -> int:
+    """Each named input once, then ``repeats`` more times in this process;
+    one line per input with every run's seconds and the repeats' median.
+    No kernel is forced: the routes are the measured-rate ones."""
+    os.environ["FASTQDEDUP_TORCH_DEVICE"] = "cuda"
+    workdir = tempfile.mkdtemp(
+        prefix="repeats_", dir=os.path.join(HERE, "fastqdedup_tpu_torch",
+                                            "build"))
+    try:
+        files = {}
+        for name in names:
+            file, check_length, edit = INPUTS[name]
+            if file not in files:
+                n_reads, dup, err, indel = FILES[file]
+                files[file] = os.path.join(workdir, f"{file}.fastq.gz")
+                generate_fastq(files[file], n_reads, 100, 12, seed=7,
+                               dup_factor=dup, error_rate=err,
+                               indel_rate=indel)
+        for name in names:
+            file, check_length, edit = INPUTS[name]
+            lines = [run_pipeline(workdir, name, files[file], FILES[file][0],
+                                  check_length, edit, f"{name}-r{i}")
+                     for i in range(repeats + 1)]
+            seconds = [line["seconds"] for line in lines]
+            emit({"phase": "repeats", "input": name,
+                  "first_run_s": seconds[0], "repeat_runs_s": seconds[1:],
+                  "median_repeat_s": statistics.median(seconds[1:]),
+                  "launches_per_run": lines[-1]["launches"]})
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return 0
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "smoke run needs an NVIDIA GPU", file=sys.stderr)
@@ -982,7 +1257,13 @@ def main() -> int:
           "seconds": time.perf_counter() - t0,
           "log": [line for line in log.splitlines() if line.strip()]})
 
+    if argv[:1] == ["--repeats"]:
+        return run_repeats(int(argv[1]), argv[2:])
+    if argv == ["--phases"]:
+        return run_phases(dev)
     summary = check_kernels(dev)
+    if argv == ["--kernels"]:
+        return 0
 
     os.environ["FASTQDEDUP_TORCH_DEVICE"] = "cuda"
     from fastqdedup_tpu_torch.ops.bucket import measured_h2d_rate
@@ -1072,8 +1353,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": sum(by_path[name].values()),
          "launches_by_path": by_path[name],
-         "max_abs_err": summary[name]["max_abs_err"],
-         "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"]}
+         **summary[name]}
         for name, (source, replaces) in KERNELS.items()]})
     for line in smi:
         print(line, flush=True)
@@ -1086,4 +1366,4 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--distributed-worker"]:
         sys.exit(distributed_worker(int(sys.argv[2]), int(sys.argv[3]),
                                     sys.argv[4]))
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -12,11 +12,18 @@ replace its three Pallas kernels; the CUDA source is ``csrc/hamming.cu``:
   ``[P, lanes]`` x 2 -> bool ``[P, 1]``.
 
 The first two are one computation (a packed all-pairs tile) and share
-one ``__global__`` kernel; see the note at the top of ``hamming.cu`` for
-what bounds each kernel on the H100 and how the design answers it.
+one entry point.  ``alphabet_pad`` alone picks its route: from 5 to 8
+(DNA) the match counts are an int8 one-hot product on the tensor cores
+(``wgmma``), thresholded and bit-packed in registers; any other alphabet
+takes a SIMT kernel that compares 4 symbols per word.  The tensor-core
+route is bound by int8 operations, the SIMT route by integer
+instructions, the rowwise kernel by device-memory bytes; the note at the
+top of ``hamming.cu`` says what holds each below its bound.
 Packed outputs hold 8 columns per byte in little bit order.  A symbol
 matches only where ``a == b`` and ``a < alphabet_pad``, so the pad symbol
-0xFF matches nothing.
+0xFF matches nothing.  The all-pairs kernel takes N and M in multiples of
+128 and Lp in multiples of 16 (every caller pads so), reads only the
+columns below ``length``, and expects the pad symbol in the rest.
 
 A wrapper given a CPU tensor computes the plain PyTorch version (the
 tests run it against the Pallas kernels); given a CUDA tensor it
@@ -38,10 +45,10 @@ from .kernel_lib import check_cuda, check_status, library
 # takes any P).
 ROW_BLOCK = 8192
 
-# Row and column granularity of the all-pairs kernel: 32 output rows by
-# 128 output columns per thread block.
-_ROW_TILE = 32
-_COL_TILE = 128
+# Granularity of the all-pairs kernel: a thread block computes 128 output
+# rows by 128 output columns, and reads rows 16 symbols at a time.
+_TILE = 128
+_WIDTH_UNIT = 16
 
 _PAD_SYMBOL = 0xFF  # outside every padded alphabet: matches nothing
 
@@ -126,10 +133,12 @@ def _pairs_within_launch(name: str, a: torch.Tensor, b: torch.Tensor,
     if b.shape[0] != batch or b.shape[2] != l_pad:
         raise ValueError(f"{name}: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} do not pair")
-    if n % _ROW_TILE or m % _COL_TILE or l_pad % 4:
-        raise ValueError(f"{name}: rows must be multiples of {_ROW_TILE}, "
-                         f"columns of {_COL_TILE}, width of 4; got "
+    if n % _TILE or m % _TILE or l_pad % _WIDTH_UNIT:
+        raise ValueError(f"{name}: rows and columns must be multiples of "
+                         f"{_TILE}, width of {_WIDTH_UNIT}; got "
                          f"N={n} M={m} Lp={l_pad}")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"{name}: tensor data must be 16-byte aligned")
     if not 0 < alphabet_pad <= 255:
         raise ValueError(f"{name}: alphabet_pad {alphabet_pad} out of range")
     out = torch.empty((batch, n, m // 8), dtype=torch.uint8, device=a.device)
@@ -155,8 +164,10 @@ def bucket_within_packed(batch: torch.Tensor, length: int,
 
     Replaces ``pallas_hamming.bucket_within_packed`` (both its grouped
     and its tiled body).  ``batch``: uint8 [K, S, Lp] alphabet indices
-    with 0xFF padding; pad rows match nothing unless ``length <=
-    max_distance``.  ``length`` is the real compared width, not Lp."""
+    with 0xFF padding (rows, and every column from ``length`` on); pad
+    rows match nothing unless ``length <= max_distance``.  ``length`` is
+    the real compared width, not Lp.  On the card S must be a multiple of
+    128 and Lp of 16."""
     if batch.device.type == "cpu":
         return pairs_within_plain(batch, batch, length, max_distance,
                                   alphabet_pad)

@@ -27,52 +27,70 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _bucket_batch(rng, buckets, size, length):
-    """[K, S, Lp] near-duplicate buckets with 0xFF pad rows and columns."""
-    l_pad, _ = hk._pad_dims(length, 5)
-    rows = np.repeat(rng.integers(0, 5, (buckets, 1, length),
+def _bucket_batch(rng, buckets, size, length, alphabet=5, l_pad=0):
+    """[K, S, Lp] near-duplicate buckets with 0xFF pad rows and columns;
+    every third bucket from the second on is pad rows only."""
+    l_pad = l_pad or hk._pad_dims(length, alphabet)[0]
+    rows = np.repeat(rng.integers(0, alphabet, (buckets, 1, length),
                                   dtype=np.uint8), size, axis=1)
     kk, ss = np.indices((buckets, size))
     sel = rng.random((buckets, size)) < 0.6
     rows[kk[sel], ss[sel], rng.integers(0, length, int(sel.sum()))] = \
-        rng.integers(0, 5, int(sel.sum()), dtype=np.uint8)
+        rng.integers(0, alphabet, int(sel.sum()), dtype=np.uint8)
     batch = np.full((buckets, size, l_pad), 0xFF, dtype=np.uint8)
     batch[:, :, :length] = rows
     fill = rng.integers(2, size + 1, buckets)
+    fill[1::3] = 0
     batch[np.arange(size)[None, :] >= fill[:, None]] = 0xFF
     return torch.from_numpy(batch)
 
 
-@pytest.mark.parametrize("buckets,size,length,d", [
-    (64, 128, 50, 1), (4, 512, 50, 1), (2, 2048, 100, 2), (8, 128, 17, 0),
-    (4, 128, 2, 2),
+# Both routes of the all-pairs kernel (tensor cores up to alphabet_pad 8,
+# SIMT above) at their edges: widths that fill neither a 16-symbol group
+# nor a 4-symbol word, length <= d, Lp 16 and above 256, Lp beyond the
+# padded width, one bucket and odd bucket counts, d = 0 to 2.
+@pytest.mark.parametrize("buckets,size,length,d,alphabet,l_pad", [
+    (64, 128, 50, 1, 5, 0), (4, 512, 50, 1, 5, 0), (2, 2048, 100, 2, 5, 0),
+    (8, 128, 17, 0, 5, 0), (4, 128, 2, 2, 5, 0), (1, 128, 16, 0, 5, 16),
+    (67, 128, 37, 1, 5, 0), (3, 256, 300, 2, 5, 0), (5, 128, 37, 2, 5, 256),
+    (7, 128, 50, 1, 8, 0), (3, 512, 100, 0, 8, 0), (1, 128, 2, 2, 8, 0),
+    (7, 128, 50, 1, 12, 0), (3, 256, 37, 0, 24, 0), (2, 128, 300, 2, 24, 0),
+    (4, 128, 2, 2, 24, 0),
 ])
 def test_bucket_kernel_matches_plain(cuda_device, buckets, size, length,
-                                     d):
+                                     d, alphabet, l_pad):
     batch = _bucket_batch(np.random.default_rng(size + d), buckets, size,
-                          length)
-    _, a_pad = hk._pad_dims(length, 5)
+                          length, alphabet, l_pad)
+    _, a_pad = hk._pad_dims(length, alphabet)
     want = hk.pairs_within_plain(batch, batch, length, d, a_pad)
     before = hk.LAUNCHES["bucket_within_packed"]
     got = hk.bucket_within_packed(batch.to(cuda_device), length, d, a_pad)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+    assert 0 < int(want.count_nonzero()) < want.numel() or length <= d
     assert hk.LAUNCHES["bucket_within_packed"] == before + 1
 
 
-@pytest.mark.parametrize("n,m,length,d", [
-    (256, 128, 100, 1), (128, 384, 37, 2), (2048, 2048, 100, 0),
+@pytest.mark.parametrize("n,m,length,d,alphabet", [
+    (256, 128, 100, 1, 5), (128, 384, 37, 2, 5), (2048, 2048, 100, 0, 5),
+    (2048, 128, 100, 1, 5), (128, 128, 16, 0, 5), (128, 256, 300, 2, 8),
+    (384, 128, 50, 1, 8), (128, 384, 2, 2, 5), (256, 128, 50, 1, 12),
+    (128, 256, 37, 2, 24),
 ])
-def test_tile_kernel_matches_plain(cuda_device, n, m, length, d):
+def test_tile_kernel_matches_plain(cuda_device, n, m, length, d, alphabet):
     rng = np.random.default_rng(length + d)
-    a = torch.from_numpy(rng.integers(0, 5, (n, length), dtype=np.uint8))
+    a = torch.from_numpy(rng.integers(0, alphabet, (n, length),
+                                      dtype=np.uint8))
     b = a.repeat(-(-m // n), 1)[:m].clone()
-    b[:, 3] = 0
+    b[:, min(3, length - 1)] = 0
     a[-5:] = 0xFF
-    want = hk.within_tile_packed(a, b, 5, d)
-    got = hk.within_tile_packed(a.to(cuda_device), b.to(cuda_device), 5, d)
+    want = hk.within_tile_packed(a, b, alphabet, d)
+    before = hk.LAUNCHES["within_tile_packed"]
+    got = hk.within_tile_packed(a.to(cuda_device), b.to(cuda_device),
+                                alphabet, d)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+    assert hk.LAUNCHES["within_tile_packed"] == before + 1
 
 
 @pytest.mark.parametrize("lanes,d", [(13, 1), (13, 0), (7, 2)])
@@ -89,10 +107,22 @@ def test_rowwise_kernel_matches_plain(cuda_device, lanes, d):
     assert torch.equal(got.cpu(), want)
 
 
-def test_kernel_refuses_shapes_it_does_not_take(cuda_device):
-    a = torch.zeros((100, 16), dtype=torch.uint8, device=cuda_device)
+@pytest.mark.parametrize("n,m,l_pad", [
+    (100, 128, 16), (128, 96, 16), (64, 128, 16), (128, 128, 24),
+])
+def test_kernel_refuses_shapes_it_does_not_take(cuda_device, n, m, l_pad):
+    """Rows and columns in multiples of 128, widths in multiples of 16."""
+    a = torch.zeros((1, n, l_pad), dtype=torch.uint8, device=cuda_device)
+    b = torch.zeros((1, m, l_pad), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError, match="multiples"):
-        hk.within_tile_packed(a, a, 5, 1)
+        hk._pairs_within_launch("within_tile_packed", a, b, l_pad, 1, 5)
+
+
+def test_kernel_refuses_rows_off_16_bytes(cuda_device):
+    a = torch.zeros((128 * 16 + 4,), dtype=torch.uint8,
+                    device=cuda_device)[4:].reshape(1, 128, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        hk._pairs_within_launch("bucket_within_packed", a, a, 16, 1, 5)
 
 
 def test_pipeline_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch):

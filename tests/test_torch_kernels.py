@@ -66,6 +66,28 @@ def test_bucket_plain_matches_pallas(buckets, size, length, d):
     assert hk.LAUNCHES["bucket_within_packed"] == 0  # plain version only
 
 
+@pytest.mark.parametrize("size", [128, 512])
+@pytest.mark.parametrize("length,d,alphabet", [
+    (2, 0, 8), (37, 1, 8), (2, 1, 24), (37, 2, 24), (37, 0, 5),
+])
+def test_bucket_plain_matches_pallas_wider_alphabets(size, length, d,
+                                                     alphabet):
+    """The plain version the CUDA kernel is judged by, pinned where that
+    kernel changes route (alphabet_pad 8 against 24) and at widths that
+    fill neither a 16-symbol group nor a 4-symbol word."""
+    rng = np.random.default_rng(size + length + alphabet)
+    batch = _bucket_batch(rng, 3, size, length, max_fill=size - 5,
+                          alphabet=alphabet)
+    l_pad, a_pad = hk._pad_dims(length, alphabet)
+    assert a_pad == alphabet and batch.shape[2] == l_pad
+    want = _pallas_bucket(batch, length, d, a_pad)
+    got = hk.pairs_within_plain(torch.from_numpy(batch),
+                                torch.from_numpy(batch), length, d,
+                                a_pad).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < int(np.unpackbits(want).sum()) < want.size * 8
+
+
 @pytest.mark.parametrize("length,d", [(20, 1), (50, 2), (17, 0)])
 def test_bucket_plain_matches_xla(length, d):
     """Exact equality with the XLA formulation the JAX package runs off
@@ -129,6 +151,49 @@ def test_rowwise_plain_matches_pallas(length, d):
                                    d).numpy()
     assert got.shape == (hk.ROW_BLOCK, 1) and got.dtype == np.bool_
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,m,length,alphabet,d", [
+    (128, 256, 2, 8, 0), (256, 128, 37, 8, 1), (128, 128, 37, 24, 2),
+    (128, 384, 2, 24, 1),
+])
+def test_within_tile_plain_matches_pallas_wider_alphabets(n, m, length,
+                                                          alphabet, d):
+    rng = np.random.default_rng(n + m + length + alphabet)
+    a = rng.integers(0, alphabet, size=(n, length), dtype=np.uint8)
+    b = np.concatenate([a, a, a])[:m].copy()
+    b[np.arange(m), rng.integers(0, length, size=m)] = rng.integers(
+        0, alphabet, size=m)
+    a[-3:] = 0xFF
+    want = np.asarray(pallas.within_tile_packed(a, b, alphabet, d))
+    got = hk.within_tile_packed(torch.from_numpy(a), torch.from_numpy(b),
+                                alphabet, d).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_kernel_bounds_count_bytes_and_operations():
+    """chip_smoke's bound functions at the main path's shapes: every
+    input and output byte once; one int8 multiply-add per pair, position
+    and alphabet symbol."""
+    import chip_smoke
+
+    buckets = chip_smoke.pairs_within_cost(2048, 128, 128, 64, 50, 5, True)
+    assert buckets["bytes"] == 20_971_520
+    assert buckets["ops"] == 2 * 2048 * 128 * 128 * 50 * 5 == 16_777_216_000
+    bound = chip_smoke.kernel_bound(buckets)
+    assert bound["bound_by"] == "operations"
+    assert bound["bound_ms"] == pytest.approx(16_777_216_000 / 1979e12 * 1e3)
+    tile = chip_smoke.pairs_within_cost(1, 2048, 2048, 112, 100, 5, False)
+    assert tile["bytes"] == 983_040 and tile["ops"] == 4_194_304_000
+    rowwise = chip_smoke.kernel_bound(chip_smoke.rowwise_cost(1 << 21, 13))
+    assert rowwise["bytes"] == 220_200_960
+    assert rowwise["bound_by"] == "bytes"
+    assert rowwise["bound_ms"] == pytest.approx(220_200_960 / 3.35e12 * 1e3)
+    lengths = np.array([100, 100, 100, 0], dtype=np.int32)
+    others = np.array([100, 101, 103, 1], dtype=np.int32)
+    banded = chip_smoke.banded_cost(lengths, others, 1, 112, True)
+    assert banded["bytes"] == 4 * (2 * 112 + 8 + 1 + 8)
+    assert banded["ops"] == 4 * (100 + 100 + 0) * 3  # the gap of 3 stops
 
 
 def test_pack_bits_little_order():
