@@ -17,7 +17,11 @@ Phases, each printing one JSON line to stdout:
    alphabets 5 to 24, N != M tiles, buckets of pad rows only, K = 1 and
    odd K, d = 0 to 2; for the edit kernel d = 0, 2, 3 and 6, empty
    strings, length gaps above d, lengths 99/100/101, arbitrary pad bytes,
-   and the indexed entry).  A timed line carries the kernel's time from
+   lengths at the edges of 4- and 8-symbol words with the only difference
+   in the last symbol or in the first pad byte, widths 1, 30, 100 and
+   300, d at and above the width, P = 1 and P off the block's pairs, and
+   the indexed entry, also with equal and repeated indices; d = 1, 2 and
+   6 are timed).  A timed line carries the kernel's time from
    CUDA-graph replays (``ms``, no host gaps; inputs L2-warm), the time of
    one launch between two events (``ms_one_launch``, which includes the
    host's launch path), the plain version's time taken in turns with it,
@@ -65,13 +69,16 @@ line.  Without CUDA, or without the package beside this script, it exits
 2 and prints no result.  ``--distributed-worker`` is phase 7's child
 process, started by the script itself.
 
-Three shorter runs for measurements, none of which prints a result
+Four shorter runs for measurements, none of which prints a result
 line: ``python3 chip_smoke.py --kernels`` stops after phase 3, and
 ``python3 chip_smoke.py --repeats N default umi12 dense`` runs each named
 input once and then N more times (sha256 checked every time) and prints
 the seconds of every run with their median;
 ``python3 chip_smoke.py --phases`` builds the all-pairs kernel with its
-phase timestamps compiled in and prints where a block spends a tile.
+phase timestamps compiled in and prints where a block spends a tile;
+``python3 chip_smoke.py --edit-variants`` builds the edit kernel's
+measurement variants (parts of it removed, the band scan in place of the
+diagonals, other scan widths) and times them beside the library's build.
 
 The expected sha256 values were computed with the JAX package on the CPU
 from byte-identical inputs: generate each input with
@@ -498,6 +505,72 @@ def edit_pairs(rng, p: int, d: int, l_pad: int = 112, gap=None):
             torch.from_numpy(lb))
 
 
+def edit_edge_pairs(rng, d: int, l_pad: int = 112):
+    """Pairs at the edges of the words a match scan reads: la in 7-9,
+    15-17, 63-65, 111 and 112, lb within d of it, and per length pair
+    equal strings, the only difference in the last symbol, the only
+    difference in the bytes past the lengths, and one base deleted near
+    the start."""
+    rows = []
+    for la in (7, 8, 9, 15, 16, 17, 63, 64, 65, 111, 112):
+        for lb in range(max(la - d, 1), min(la + d, l_pad) + 1):
+            for case in range(4):
+                x = rng.integers(0, 4, l_pad, dtype=np.uint8)
+                y = x.copy()
+                if case == 1:
+                    y[min(la, lb) - 1] ^= 1
+                elif case == 2:
+                    x[la:] = 0xFF
+                    y[lb:] = 0xEE
+                elif case == 3:
+                    y[2:-1] = x[3:]
+                rows.append((x, la, y, lb))
+    return (torch.from_numpy(np.stack([r[0] for r in rows])),
+            torch.tensor([r[1] for r in rows], dtype=torch.int32),
+            torch.from_numpy(np.stack([r[2] for r in rows])),
+            torch.tensor([r[3] for r in rows], dtype=torch.int32))
+
+
+def edit_pairs_of_width(rng, p: int, width: int, d: int):
+    """uint8 [P, width] pairs of any width: b is a with substitutions,
+    half of them also shifted by one base, a quarter unrelated; lengths
+    anywhere in [0, width] with gaps around d, a third at the full
+    width."""
+    a = rng.integers(0, 3, (p, width), dtype=np.uint8)
+    b = a.copy()
+    shift = rng.random(p) < 0.5
+    b[shift, 1:] = a[shift, :-1]
+    for _ in range(d + 1):
+        sel = np.flatnonzero(rng.random(p) < 0.4)
+        b[sel, rng.integers(0, width, len(sel))] = rng.integers(
+            0, 3, len(sel), dtype=np.uint8)
+    far = rng.random(p) < 0.25
+    b[far] = rng.integers(0, 3, (int(far.sum()), width), dtype=np.uint8)
+    la = rng.integers(0, width + 1, p)
+    la[rng.random(p) < 0.33] = width
+    lb = (la + rng.integers(-d - 1, d + 2, p)).clip(0, width)
+    return (torch.from_numpy(a), torch.from_numpy(la.astype(np.int32)),
+            torch.from_numpy(b), torch.from_numpy(lb.astype(np.int32)))
+
+
+def indexed_edit_batch(rng, p: int, dev):
+    """One verification batch of the edit path: ``p`` index pairs into a
+    resident key matrix of 400k keys (about the indel input's unique
+    keys).  Keys 2k and 2k + 1 are a near-duplicate pair, lengths at most
+    one apart, so nearly every pair runs the whole DP; a quarter of the
+    candidates pair random keys."""
+    a, la, b, lb = edit_pairs(rng, 200_000, 1, gap=1)
+    keys = torch.stack([a, b], dim=1).reshape(400_000, 112).to(dev)
+    lens = torch.stack([la, lb], dim=1).reshape(400_000).to(dev)
+    ci = 2 * rng.integers(0, 200_000, p)
+    cj = ci + 1
+    far = rng.random(p) < 0.25
+    cj[far] = rng.integers(0, 400_000, int(far.sum()))
+    ci = torch.from_numpy(ci.astype(np.int32)).to(dev)
+    cj = torch.from_numpy(cj.astype(np.int32)).to(dev)
+    return keys, lens, ci, cj
+
+
 def check_kernels(dev) -> dict:
     """Every kernel on the card against its plain version; returns, per
     kernel, the main shape's times and the largest error seen."""
@@ -627,8 +700,10 @@ def check_kernels(dev) -> dict:
                cost=rowwise_cost(p, lanes))
 
     # Kernel 4: one verification batch of the edit path (2^16 pairs of
-    # 100 bp keys padded to 112), d = 1, through both entry points; then
-    # d = 0, 2, 3 and 6 (the run-time band width) and extreme lengths.
+    # 100 bp keys padded to 112) at d = 1, 2 and 6, timed, and d = 0 and
+    # 3; then extreme lengths, the edges of the words a match scan reads,
+    # widths off the 16-byte grid, d at and above the width, P = 1 and P
+    # off the block's pairs, and the indexed entry.
     name = "banded_within_edit_distance"
     p = 1 << 16
     for d in (1, 0, 2, 3, 6):
@@ -639,7 +714,7 @@ def check_kernels(dev) -> dict:
         record(name, f"P={p} Lp=112 lengths 0/99-101 d={d}", got, want,
                lambda: ek.banded_within_edit_distance(a, la, b, lb, d),
                lambda: ek.banded_within_plain(a, la, b, lb, d), False,
-               timed=d == 1,
+               timed=d in (1, 2, 6),
                cost=banded_cost(la.cpu().numpy(), lb.cpu().numpy(), d, 112,
                                 False))
     for d in (1, 6):
@@ -653,20 +728,44 @@ def check_kernels(dev) -> dict:
         torch.cuda.synchronize()
         record(name, f"P=8192 Lp=112 lengths 0-112 d={d}", got,
                ek.banded_within_plain(a, la, b, lb, d), None, None, False)
-    # The path's launch: index pairs into a resident key matrix of
-    # 400k keys (about the indel input's unique keys), gathered in the
-    # kernel.  Keys 2k and 2k + 1 are a near-duplicate pair, lengths at
-    # most one apart, so nearly every pair runs the whole DP; a quarter
-    # of the candidates pair random keys.
-    a, la, b, lb = edit_pairs(rng, 200_000, 1, gap=1)
-    keys = torch.stack([a, b], dim=1).reshape(400_000, 112).to(dev)
-    lens = torch.stack([la, lb], dim=1).reshape(400_000).to(dev)
-    ci = 2 * rng.integers(0, 200_000, p)
-    cj = ci + 1
-    far = rng.random(p) < 0.25
-    cj[far] = rng.integers(0, 400_000, int(far.sum()))
-    ci = torch.from_numpy(ci.astype(np.int32)).to(dev)
-    cj = torch.from_numpy(cj.astype(np.int32)).to(dev)
+    for d in (0, 1, 2, 3, 6):
+        a, la, b, lb = (t.to(dev) for t in edit_edge_pairs(rng, d))
+        got = ek.banded_within_edit_distance(a, la, b, lb, d)
+        torch.cuda.synchronize()
+        record(name, f"P={len(la)} Lp=112 lengths at word edges d={d}", got,
+               ek.banded_within_plain(a, la, b, lb, d), None, None, False)
+    # (P, width, d): d at and above the width answers without a DP.
+    for count, width, d in ((1, 112, 1), (129, 112, 2), (4099, 100, 1),
+                            (1000, 1, 0), (1000, 1, 1), (1000, 30, 1),
+                            (1000, 30, 3), (1000, 30, 30), (1000, 30, 45),
+                            (1000, 100, 6), (500, 300, 2), (300, 300, 6)):
+        a, la, b, lb = (t.to(dev)
+                        for t in edit_pairs_of_width(rng, count, width, d))
+        got = ek.banded_within_edit_distance(a, la, b, lb, d)
+        torch.cuda.synchronize()
+        record(name, f"P={count} L={width} lengths 0-{width} d={d}", got,
+               ek.banded_within_plain(a, la, b, lb, d), None, None, False)
+    # The indexed entry on a small matrix of width 30: every key with
+    # itself, then few keys drawn again and again.
+    keys, lens, _, _ = (t.to(dev)
+                        for t in edit_pairs_of_width(rng, 600, 30, 1))
+    same = torch.arange(600, dtype=torch.int32, device=dev)
+    few = torch.from_numpy(rng.integers(0, 7, 5000).astype(np.int32)).to(dev)
+    other = torch.from_numpy(rng.integers(0, 600, 5000).astype(
+        np.int32)).to(dev)
+    for label, ci, cj in (("ci == cj", same, same),
+                          ("repeated indices", few, other)):
+        for d in (0, 1, 2):
+            got = ek.banded_within_edit_distance_indexed(keys, lens, ci, cj,
+                                                         d)
+            torch.cuda.synchronize()
+            record(name, f"indexed, {label}: P={len(ci)} into n=600 keys "
+                   f"L=30 d={d}", got,
+                   ek.banded_within_plain(keys[ci.long()], lens[ci.long()],
+                                          keys[cj.long()], lens[cj.long()],
+                                          d), None, None, False)
+    # The path's launch, gathered in the kernel.
+    keys, lens, ci, cj = indexed_edit_batch(rng, p, dev)
     got = ek.banded_within_edit_distance_indexed(keys, lens, ci, cj, 1)
     torch.cuda.synchronize()
 
@@ -1194,6 +1293,103 @@ def run_phases(dev) -> int:
     return 0
 
 
+# Builds of csrc/edit.cu for --edit-variants: (label, nvcc flags, whether
+# its answers are the kernel's).
+EDIT_VARIANTS = (
+    ("library build: diagonals, 16 symbols a step", [], True),
+    ("every pair staged before its lengths arrive",
+     ["-DFQD_EDIT_STAGE_ALL"], True),
+    ("band scan behind the same staging", ["-DFQD_EDIT_BAND_SCAN"], True),
+    ("stops after the answers that need no DP",
+     ["-DFQD_EDIT_STOP_AFTER=1"], False),
+    ("stops after staging", ["-DFQD_EDIT_STOP_AFTER=2"], False),
+)
+
+
+def run_edit_variants(dev) -> int:
+    """Where the edit kernel's time goes, and the candidates it was
+    chosen from: builds ``csrc/edit.cu`` once per entry of
+    ``EDIT_VARIANTS`` into a library of its own, all in parallel, and
+    times each (CUDA-graph replays, all variants in turn and then in
+    reverse) on the indexed main shape and on the paired batches at d =
+    1, 2 and 6.  A variant that computes the whole function must equal
+    the plain version."""
+    import ctypes
+
+    from fastqdedup_tpu_torch.ops import edit_kernels as ek
+    from fastqdedup_tpu_torch.ops import kernel_lib
+
+    build = os.path.dirname(kernel_lib.LIB_PATH)
+    os.makedirs(build, exist_ok=True)
+    source = os.path.join(HERE, "fastqdedup_tpu_torch", "csrc", "edit.cu")
+    paths = [os.path.join(build, f"libfqd_edit_variant{n}.so")
+             for n in range(len(EDIT_VARIANTS))]
+    procs = [subprocess.Popen(
+        [kernel_lib._nvcc(), *kernel_lib._ARCH, "-std=c++17", "-O3", *flags,
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-shared", "-o", path,
+         source], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for (_, flags, _), path in zip(EDIT_VARIANTS, paths)]
+    libs = []
+    for (label, flags, _), proc, path in zip(EDIT_VARIANTS, procs, paths):
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc {' '.join(flags)} failed:\n{log}")
+        emit({"phase": "edit-variants", "variant": label, "flags": flags,
+              "ptxas": [row for row in log.splitlines()
+                        if "registers" in row or "spill" in row]})
+        lib = ctypes.CDLL(path)
+        ptr = ctypes.c_void_p
+        lib.fqd_banded_within_edit.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int, ptr]
+        lib.fqd_banded_within_edit.restype = ctypes.c_int
+        libs.append(lib)
+
+    rng = np.random.default_rng(2024)
+    p = 1 << 16
+    keys, lens, ci, cj = indexed_edit_batch(rng, p, dev)
+    cases = [("indexed: P=65536 into n=400000 keys Lp=112 d=1",
+              (keys, lens, keys, lens, ci, cj), 1)]
+    for d in (1, 2, 6):
+        a, la, b, lb = (t.to(dev) for t in edit_pairs(rng, p, d))
+        cases.append((f"P={p} Lp=112 lengths 0/99-101 d={d}",
+                      (a, la, b, lb, None, None), d))
+    for case, (a, la, b, lb, ci, cj), d in cases:
+        if ci is None:
+            want = ek.banded_within_plain(a, la, b, lb, d)
+        else:
+            want = ek.banded_within_plain(a[ci.long()], la[ci.long()],
+                                          b[cj.long()], lb[cj.long()], d)
+        out = torch.empty((p, 1), dtype=torch.bool, device=dev)
+
+        def launch(lib):
+            status = lib.fqd_banded_within_edit(
+                a.data_ptr(), la.data_ptr(), b.data_ptr(), lb.data_ptr(),
+                None if ci is None else ci.data_ptr(),
+                None if cj is None else cj.data_ptr(), out.data_ptr(), p,
+                a.shape[1], d, torch.cuda.current_stream().cuda_stream)
+            if status != 0:
+                fail(f"variant launch returned CUDA error {status}")
+
+        for (label, _, whole), lib in zip(EDIT_VARIANTS, libs):
+            out.zero_()
+            launch(lib)
+            torch.cuda.synchronize()
+            if whole and not torch.equal(out, want):
+                fail(f"{label}, {case}: disagrees with the plain version")
+        order = list(range(len(libs)))
+        turns = [[statistics.median(graph_ms(lambda: launch(libs[n])))
+                  for n in order]]
+        back = [statistics.median(graph_ms(lambda: launch(libs[n])))
+                for n in reversed(order)]
+        turns.append(back[::-1])
+        for n, (label, _, whole) in enumerate(EDIT_VARIANTS):
+            emit({"phase": "edit-variants", "case": case, "variant": label,
+                  "whole_function": whole,
+                  "ms_turns": [turns[0][n], turns[1][n]]})
+    return 0
+
+
 def run_repeats(repeats: int, names) -> int:
     """Each named input once, then ``repeats`` more times in this process;
     one line per input with every run's seconds and the repeats' median.
@@ -1261,6 +1457,8 @@ def main(argv) -> int:
         return run_repeats(int(argv[1]), argv[2:])
     if argv == ["--phases"]:
         return run_phases(dev)
+    if argv == ["--edit-variants"]:
+        return run_edit_variants(dev)
     summary = check_kernels(dev)
     if argv == ["--kernels"]:
         return 0

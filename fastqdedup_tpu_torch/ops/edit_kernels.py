@@ -1,10 +1,16 @@
-"""Hand-written Hopper kernel for banded Levenshtein verification, with
-its plain PyTorch version and launch counter.
+"""Hand-written Hopper kernel for Levenshtein verification, with its
+plain PyTorch version and launch counter.
 
 Counterpart of ``fastqdedup_tpu/ops/pallas_edit.py``: the wrappers
 replace its kernel ``banded_within_edit_distance``; the CUDA source is
 ``csrc/edit.cu`` (see the note at its top for what bounds the kernel on
-the H100 and how the design answers it).
+the H100 and how the design answers it).  The kernel decides the
+predicate without the band scan: a warp copies the rows of its 32 pairs
+into shared memory at once, then each lane runs furthest-reaching
+diagonals on its pair, matches extended 16 symbols a step
+(``csrc/edit_lv.cuh``, which also builds for the host:
+tests/test_torch_edit_core.py).  It answers every input as the plain
+version does.
 
 * :func:`banded_within_edit_distance` — per pair of rows,
   ``lev(a_p[:la_p], b_p[:lb_p]) <= d``: uint8 ``[P, L]`` x 2 and int32
@@ -16,9 +22,12 @@ A wrapper given CPU tensors computes the plain PyTorch version
 (:func:`banded_within_plain`, which the tests run against the Pallas
 kernel); given CUDA tensors it launches the kernel or raises — it never
 falls back.  Both call one C entry point, ``fqd_banded_within_edit``,
-which picks one of two ``__global__`` variants by d (the band width
-compiled in for d <= ``MAX_FIXED_DISTANCE``, read at run time above it);
-both wrappers and both variants count under one name in ``LAUNCHES``.
+and one ``__global__`` serves every d (the diagonals live in shared
+memory at run-time width, so the wrapper allocates only the output);
+both wrappers count under one name in ``LAUNCHES``.  A width or distance
+whose single pair outgrows a block's shared memory (about 2 L + 9 d
+bytes above 227 KB, with d < L) is refused with CUDA's invalid-value
+error.
 """
 
 from typing import Dict
@@ -28,11 +37,6 @@ import torch
 from .kernel_lib import check_cuda, check_status, library
 
 INF = 1 << 20  # the Pallas kernel's _INF
-
-# Distances up to this compile the band width into the kernel (the switch
-# in csrc/edit.cu's fqd_banded_within_edit); larger ones take the
-# run-time width with the band in a scratch tensor the wrapper allocates.
-MAX_FIXED_DISTANCE = 4
 
 LAUNCHES: Dict[str, int] = {"banded_within_edit_distance": 0}
 
@@ -116,12 +120,6 @@ def _launch(name: str, a: torch.Tensor, len_a: torch.Tensor,
         raise ValueError(f"{name}: indices must be int32 [P]")
     if ci is None and not a.shape[0] == b.shape[0] == p:
         raise ValueError(f"{name}: a and b must hold one row per pair")
-    length = a.shape[1]
-    band_d = min(max_distance, length)
-    scratch = None
-    if max_distance > MAX_FIXED_DISTANCE and p:
-        scratch = torch.empty((2 * band_d + 1, p), dtype=torch.int32,
-                              device=a.device)
     out = torch.empty((p, 1), dtype=torch.bool, device=a.device)
     if p == 0:
         return out
@@ -132,8 +130,7 @@ def _launch(name: str, a: torch.Tensor, len_a: torch.Tensor,
             a.data_ptr(), len_a.data_ptr(), b.data_ptr(), len_b.data_ptr(),
             None if ci is None else ci.data_ptr(),
             None if cj is None else cj.data_ptr(), out.data_ptr(), p,
-            length, int(max_distance), band_d,
-            None if scratch is None else scratch.data_ptr(), stream)
+            a.shape[1], min(int(max_distance), 2**31 - 1), stream)
     check_status(name, status)
     LAUNCHES["banded_within_edit_distance"] += 1
     return out

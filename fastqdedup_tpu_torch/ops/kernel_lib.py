@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` source compiles into one shared library with a plain
 C interface, ``fastqdedup_tpu_torch/build/libfqd_kernels.so``, loaded
 with ctypes.  Each source compiles to an object in its own ``nvcc``
 process, all started together, and one more ``nvcc`` links them.  The
-library is rebuilt when the sha256 over all sources differs from the
-stamp beside it; the first wrapper call on a CUDA tensor builds it.
+library is rebuilt when the sha256 over all sources and the headers
+beside them (``csrc/*.cuh``) differs from the stamp beside it; the first
+wrapper call on a CUDA tensor builds it.
 """
 
 import ctypes
@@ -61,7 +62,7 @@ def build_kernels() -> Tuple[str, str]:
     library is written to a temporary name and moved into place
     atomically."""
     srcs = sources()
-    digest = _digest(srcs)
+    digest = _digest(srcs + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))))
     stamp = LIB_PATH + ".sha256"
     if os.path.exists(LIB_PATH) and os.path.exists(stamp):
         with open(stamp) as f:
@@ -118,7 +119,7 @@ def library() -> ctypes.CDLL:
         lib.fqd_rowwise_within_packed.argtypes = [p, p, p, i64, i, i, p]
         lib.fqd_rowwise_within_packed.restype = i
         lib.fqd_banded_within_edit.argtypes = [
-            p, p, p, p, p, p, p, i64, i, i, i, p, p]
+            p, p, p, p, p, p, p, i64, i, i, p]
         lib.fqd_banded_within_edit.restype = i
         lib.fqd_error_string.argtypes = [i]
         lib.fqd_error_string.restype = ctypes.c_char_p

@@ -183,7 +183,7 @@ def _edit_rows(rng, p, length, d):
 
 @pytest.mark.parametrize("d", [0, 1, 2, 3, 4, 6])
 def test_edit_kernel_matches_plain(cuda_device, d):
-    """Both compiled-in band widths (d <= 4) and the run-time width."""
+    """Small and large d through the one kernel."""
     a, la, b, lb = _edit_rows(np.random.default_rng(60 + d), 20_000, 100, d)
     want = ek.banded_within_edit_distance(a, la, b, lb, d)
     before = ek.LAUNCHES["banded_within_edit_distance"]
@@ -194,6 +194,132 @@ def test_edit_kernel_matches_plain(cuda_device, d):
     assert torch.equal(got.cpu(), want)
     assert 0 < int(want.sum()) < len(want)
     assert ek.LAUNCHES["banded_within_edit_distance"] == before + 1
+
+
+def _on_card_equals_plain(cuda_device, a, la, b, lb, d):
+    want = ek.banded_within_plain(a, la, b, lb, d)
+    got = ek.banded_within_edit_distance(
+        a.to(cuda_device), la.to(cuda_device), b.to(cuda_device),
+        lb.to(cuda_device), d)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    return want
+
+
+@pytest.mark.parametrize("d", [0, 1, 2, 3, 6])
+def test_edit_kernel_at_word_edges(cuda_device, d):
+    """la and lb at the edges of the 4- and 16-symbol words a match scan
+    reads; per length pair equal strings, the only difference in the last
+    symbol, the only difference in the bytes past the lengths, and one
+    base deleted near the start."""
+    rng = np.random.default_rng(300 + d)
+    rows = []
+    for la in (7, 8, 9, 15, 16, 17, 63, 64, 65, 111, 112):
+        for lb in range(max(la - d, 1), min(la + d, 112) + 1):
+            for case in range(4):
+                x = rng.integers(0, 4, 112, dtype=np.uint8)
+                y = x.copy()
+                if case == 1:
+                    y[min(la, lb) - 1] ^= 1
+                elif case == 2:
+                    x[la:] = 0xFF
+                    y[lb:] = 0xEE
+                elif case == 3:
+                    y[2:-1] = x[3:]
+                rows.append((x, la, y, lb))
+    a = torch.from_numpy(np.stack([r[0] for r in rows]))
+    b = torch.from_numpy(np.stack([r[2] for r in rows]))
+    la = torch.tensor([r[1] for r in rows], dtype=torch.int32)
+    lb = torch.tensor([r[3] for r in rows], dtype=torch.int32)
+    want = _on_card_equals_plain(cuda_device, a, la, b, lb, d)
+    assert 0 < int(want.sum()) < len(want)
+
+
+def _rows_of_width(rng, p, width, d):
+    """uint8 [P, width] pairs of any width: b is a with substitutions,
+    half of them shifted by one base, a quarter unrelated; lengths
+    anywhere in [0, width], a third at the full width."""
+    a = rng.integers(0, 3, (p, width), dtype=np.uint8)
+    b = a.copy()
+    shift = rng.random(p) < 0.5
+    b[shift, 1:] = a[shift, :-1]
+    for _ in range(d + 1):
+        sel = np.flatnonzero(rng.random(p) < 0.4)
+        b[sel, rng.integers(0, width, len(sel))] = rng.integers(
+            0, 3, len(sel), dtype=np.uint8)
+    far = rng.random(p) < 0.25
+    b[far] = rng.integers(0, 3, (int(far.sum()), width), dtype=np.uint8)
+    la = rng.integers(0, width + 1, p)
+    la[rng.random(p) < 0.33] = width
+    lb = (la + rng.integers(-d - 1, d + 2, p)).clip(0, width)
+    return (torch.from_numpy(a), torch.from_numpy(la.astype(np.int32)),
+            torch.from_numpy(b), torch.from_numpy(lb.astype(np.int32)))
+
+
+# Widths off the 16-byte and the 4-byte grid (byte staging), rows wider
+# than one round of the warp's copies, d at and above the width (no DP),
+# P = 1 and P off the block's 128 pairs, and widths whose rows leave a
+# block one warp (2000) and a warp 16 pairs (4000) of shared memory.
+@pytest.mark.parametrize("p,width,d", [
+    (1, 112, 1), (129, 112, 2), (4099, 100, 1), (1000, 1, 0), (1000, 1, 1),
+    (1000, 30, 1), (1000, 30, 3), (1000, 30, 30), (1000, 30, 45),
+    (1000, 100, 6), (500, 300, 2), (300, 300, 6), (37, 2000, 3),
+    (40, 4000, 2),
+])
+def test_edit_kernel_any_width_and_count(cuda_device, p, width, d):
+    a, la, b, lb = _rows_of_width(np.random.default_rng(p + width + d), p,
+                                  width, d)
+    _on_card_equals_plain(cuda_device, a, la, b, lb, d)
+
+
+def test_edit_kernel_refuses_rows_off_4_bytes(cuda_device):
+    """The wrapper refuses a base off 4 bytes; a width off 4 bytes with an
+    aligned base is taken (byte staging, the cases above)."""
+    a, la, b, lb = _rows_of_width(np.random.default_rng(5), 400, 30, 1)
+    flat = torch.zeros(400 * 30 + 2, dtype=torch.uint8, device=cuda_device)
+    off = flat[2:].view(400, 30)
+    off.copy_(a)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        ek.banded_within_edit_distance(off, la.to(cuda_device),
+                                       b.to(cuda_device),
+                                       lb.to(cuda_device), 1)
+
+
+def test_edit_kernel_refuses_rows_beyond_shared_memory(cuda_device):
+    """One pair of 120,000-symbol rows outgrows a block's shared memory:
+    the launch is refused, not answered by another route."""
+    a = torch.zeros((1, 120_000), dtype=torch.uint8, device=cuda_device)
+    la = torch.full((1,), 120_000, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ek.banded_within_edit_distance(a, la, a.clone(), la.clone(), 1)
+    # The same rows at d >= L need no DP and no shared memory.
+    got = ek.banded_within_edit_distance(a, la, a.clone(), la.clone(),
+                                         120_000)
+    torch.cuda.synchronize()
+    assert bool(got.all())
+
+
+@pytest.mark.parametrize("d", [0, 1, 2])
+@pytest.mark.parametrize("pairs", ["same", "repeated"])
+def test_edit_kernel_indexed_equal_and_repeated_indices(cuda_device, pairs,
+                                                        d):
+    keys, lens, _, _ = _rows_of_width(np.random.default_rng(80 + d), 600,
+                                      30, 1)
+    rng = np.random.default_rng(d)
+    if pairs == "same":
+        ci = cj = torch.arange(600, dtype=torch.int32)
+    else:
+        ci = torch.from_numpy(rng.integers(0, 7, 5000).astype(np.int32))
+        cj = torch.from_numpy(rng.integers(0, 600, 5000).astype(np.int32))
+    want = ek.banded_within_plain(keys[ci.long()], lens[ci.long()],
+                                  keys[cj.long()], lens[cj.long()], d)
+    got = ek.banded_within_edit_distance_indexed(
+        keys.to(cuda_device), lens.to(cuda_device), ci.to(cuda_device),
+        cj.to(cuda_device), d)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    if pairs == "same":
+        assert bool(want.all())
 
 
 @pytest.mark.parametrize("d", [1, 5])

@@ -5,7 +5,9 @@ Same numpy inputs (fixed seeds) go through ``fastqdedup_tpu`` and
 
 * ``banded_within_plain`` (what the edit wrapper computes on the CPU)
   against the Pallas kernel in interpret mode, on the reference's truth
-  table and on a fuzz with indels and arbitrary pad bytes;
+  table, on a fuzz with indels and arbitrary pad bytes, and on 112-wide
+  rows with lengths at word edges (the cases the card's kernel is held
+  to the plain version on);
 * ``batched_edit_distance`` (full-row DP) against the JAX one;
 * ``edit_verify_indexed`` against the JAX ``_edit_verify_gathered``;
 * ``edit_candidate_pairs`` on each of its branches;
@@ -116,6 +118,41 @@ def test_banded_plain_fuzz_matches_pallas(d):
     b2 = np.where(np.arange(b.shape[1]) < lb[:, None], b, np.uint8(0))
     np.testing.assert_array_equal(_plain(a2, la, b2, lb, d), got)
     assert 0 < got.sum() < len(got)
+
+
+@pytest.mark.parametrize("d", [0, 1, 2, 5])
+def test_banded_plain_word_edges_matches_pallas(d):
+    """The inputs the card's kernel is most likely to get wrong, on which
+    chip_smoke.py and tests/test_torch_cuda.py hold it to the plain
+    version: 112-wide rows, la and lb at the edges of 4-, 8- and
+    16-symbol words, the only difference in the last symbol or in the
+    bytes past the lengths, one base deleted near the start.  Here the
+    plain version is held to the Pallas kernel on them."""
+    rng = np.random.default_rng(90 + d)
+    p = pallas_edit.PAIR_BLOCK
+    edges = (7, 8, 9, 15, 16, 17, 63, 64, 65, 111, 112)
+    a = rng.integers(0, 4, (p, 112), dtype=np.uint8)
+    b = a.copy()
+    la = np.array(edges, dtype=np.int32)[rng.integers(0, len(edges), p)]
+    lb = (la + rng.integers(-d, d + 1, p)).clip(1, 112).astype(np.int32)
+    rows = np.arange(p)
+    case = rows % 4
+    last = np.minimum(la, lb) - 1
+    b[rows[case == 1], last[case == 1]] ^= 1
+    pad_a = (np.arange(112) >= la[:, None]) & (case == 2)[:, None]
+    pad_b = (np.arange(112) >= lb[:, None]) & (case == 2)[:, None]
+    a[pad_a] = 0xFF
+    b[pad_b] = 0xEE
+    b[case == 3, 2:-1] = a[case == 3, 3:]
+    got = _plain(a, la, b, lb, d)
+    np.testing.assert_array_equal(got, _pallas(a, la, b, lb, d))
+    # Rows that are equal, or differ only past the lengths, are within
+    # any d at equal lengths; a differing last symbol is not within 0.
+    assert got[(case == 0) & (la == lb)].all()
+    assert got[(case == 2) & (la == lb)].all()
+    assert got[(case == 1) & (la == lb)].all() == (d > 0)
+    assert got[case == 3].any() == (d > 0) and not got.all()
+    assert ek.LAUNCHES["banded_within_edit_distance"] == 0
 
 
 @pytest.mark.parametrize("l1,l2", [(12, 12), (9, 15)])
