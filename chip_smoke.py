@@ -21,17 +21,21 @@ Phases, each printing one JSON line to stdout:
    in the last symbol or in the first pad byte, widths 1, 30, 100 and
    300, d at and above the width, P = 1 and P off the block's pairs, and
    the indexed entry, also with equal and repeated indices; d = 1, 2 and
-   6 are timed).  A timed line carries the kernel's time from
+   6 are timed; and ``edit_verify_indexed(..., packed=True)`` on the
+   nibble-packed key matrix against ``packed=False``).  A timed line
+   carries the kernel's time from
    CUDA-graph replays (``ms``, no host gaps; inputs L2-warm), the time of
    one launch between two events (``ms_one_launch``, which includes the
    host's launch path), the plain version's time taken in turns with it,
    and the kernel's bound on this card: the bytes and operations counted
    from the shapes (``kernel_bound``), the larger of their two times, and
    the share of it the kernel reached;
-4. ``pipeline`` — ``deduplicate_cluster`` with its defaults (Hamming d=1,
+4. ``warmup`` — ``fastqdedup_tpu_torch.warmup.warmup()`` once, its steps
+   printed; its launches must count apart from real work;
+5. ``pipeline`` — ``deduplicate_cluster`` with its defaults (Hamming d=1,
    directional, error rate 0.001) on 1M generated 100 bp reads; the
    sha256 of the decompressed output must equal the JAX package's;
-5. ``route`` — further runs so that every kernel is launched by the
+6. ``route`` — further runs so that every kernel is launched by the
    pipeline: a duplicate-dense input, a 12-base check length (UMI-style
    keys, large pigeonhole buckets), a small input whose length group
    the tile sweep takes, and the Levenshtein path (``--edit``) on the
@@ -40,11 +44,24 @@ Phases, each printing one JSON line to stdout:
    packages' rate knobs and says so; a forced run must write the same
    bytes as the unforced one.  Launch counts are set to 0 before the
    Hamming runs and again before the edit runs, and read after each;
-6. ``api`` — the ``Trie`` facade in Levenshtein mode (membership queries
+7. ``configs`` — the documented configurations of the system
+   (``BASELINE.json``) that the runs above leave out, each at 1M records
+   per file against a sha256 pinned from the JAX package (``CONFIGS``):
+   ``highest_count``; a quality filter that drops 5% of the reads;
+   paired files with check lengths 16,8; two read files and a UMI file
+   with ``adjacency`` and d=2; d=2 ``adjacency`` on 12-base keys;
+   ``--edit`` at d=2 on the input with indels (``--edit`` directional
+   d=1 is phase 6's ``edit`` and ``indel`` runs).  Several outputs are
+   hashed concatenated in order.  Launch counts from 0; every launch's
+   shape and distance is recorded at the library's entry points, and the
+   phase must have launched the all-pairs kernel at d=2 on buckets of S
+   >= 512, the pair-list kernel at d=2 and the edit kernel at d=2,
+   forcing as phase 6 does where the measured rates do not reach one;
+8. ``api`` — the ``Trie`` facade in Levenshtein mode (membership queries
    and ``pop_all_clusters`` over 2,000 reads with indels) on the card and
    on the CPU device: equal answers, and the card's run, counted from 0,
    launches the edit kernel;
-7. ``distributed`` — two processes of one ``torch.distributed`` job
+9. ``distributed`` — two processes of one ``torch.distributed`` job
    (gloo over a ``TCPStore`` on localhost, both on ``cuda:0``) run the
    ``default``, ``umi12`` and ``edit`` inputs (BGZF, so each process
    ingests its byte range) and the default input split into two BGZF
@@ -55,21 +72,21 @@ Phases, each printing one JSON line to stdout:
    ``torch.profiler`` for the card's busy time.  The umi12 runs must
    launch ``bucket_within_packed`` and the edit runs
    ``banded_within_edit_distance``, summed over both processes;
-8. ``mesh`` — component labels of the umi12 run's edge list with
-   ``sharded_components_from_edges`` on 2 shards of ``cuda:0`` (and on
-   every card when there are several) must equal host union-find;
-9. ``quality`` — the default run with ``FASTQDEDUP_DEVICE_QUALITY=1`` on
-   the card and on the CPU device must write the same bytes.
+10. ``mesh`` — component labels of the umi12 run's edge list with
+    ``sharded_components_from_edges`` on 2 shards of ``cuda:0`` (and on
+    every card when there are several) must equal host union-find;
+11. ``quality`` — the default run with ``FASTQDEDUP_DEVICE_QUALITY=1`` on
+    the card and on the CPU device must write the same bytes.
 
-Then one ``{"kernels": [...]}`` line (launch counts of phases 4-5 and 7,
+Then one ``{"kernels": [...]}`` line (launch counts of phases 5-7 and 9,
 times, bounds and errors of phase 3), the ``nvidia-smi`` name/power-limit line,
 and the result line ``{"ok": true, "device": {...}}`` last.  Any failed
 check, or a child process that fails, exits non-zero before the result
 line.  Without CUDA, or without the package beside this script, it exits
-2 and prints no result.  ``--distributed-worker`` is phase 7's child
-process, started by the script itself.
+2 and prints no result.  ``--distributed-worker`` and
+``--first-run-worker`` are child processes started by the script itself.
 
-Four shorter runs for measurements, none of which prints a result
+Six shorter runs for measurements, none of which prints a result
 line: ``python3 chip_smoke.py --kernels`` stops after phase 3, and
 ``python3 chip_smoke.py --repeats N default umi12 dense`` runs each named
 input once and then N more times (sha256 checked every time) and prints
@@ -78,20 +95,36 @@ the seconds of every run with their median;
 phase timestamps compiled in and prints where a block spends a tile;
 ``python3 chip_smoke.py --edit-variants`` builds the edit kernel's
 measurement variants (parts of it removed, the band scan in place of the
-diagonals, other scan widths) and times them beside the library's build.
+diagonals, other scan widths) and times them beside the library's build;
+``python3 chip_smoke.py --first-run default umi12 edit`` runs each named
+input once in a fresh process, with the prewarm thread of pass 1 and with
+it stubbed out (with, without, without, with), and prints per process the
+seconds of the interpreter and imports, of passes 1 to 3, of the library
+load and each rate probe where the run reached them, of the thread's own
+steps, and the launch counts; one more process times the parts of
+bringing the card up one after the other with nothing else running;
+``python3 chip_smoke.py --packed-keys N edit indel`` runs each named
+Levenshtein input in N rounds of plain, packed, packed, plain key matrix
+(``engine.PACK_KEY_MATRIX``) and prints the run, the packing, the
+verification batches and the copy of each form.
 
 The expected sha256 values were computed with the JAX package on the CPU
 from byte-identical inputs: generate each input with
-``generate_fastq`` below (same arguments), run
+``generate_fastq`` below (same arguments; the mate and UMI files in the
+same call as the default file), run
 ``fastqdedup_tpu.pipeline.deduplicate_cluster`` on it with the same
-check slices (and ``use_edit_distance=True`` for the edit runs), and hash
-the gunzipped output.  The default input has no indels, so its ``--edit``
-output equals its Hamming output; the indel input's does not.
+files, check slices, ``max_distance`` and dissection function (and
+``use_edit_distance=True`` for the edit runs), and hash the gunzipped
+outputs, concatenated in the order of the files.  The default input has
+no indels, so its ``--edit`` output equals its Hamming output; the indel
+input's does not.  The ``configs`` runs took 2 to 46 s each that way, so
+none of them was cut below 1M reads.
 """
 
 import contextlib
 import gzip
 import hashlib
+import io
 import json
 import os
 import shutil
@@ -122,30 +155,68 @@ EXPECTED_SHA256 = {
         "42856e003e1d71bbd68164af0ac03390b57fea4349496557e5fb5bf51a6174fa",
     "indel":
         "12ffb9c23697060591d458f4545556240c7cfba3ea8e762cc6602e582d9cad22",
+    # The configs phase; several outputs are hashed concatenated in order.
+    "highest":
+        "29508c18ddcc97dae7796b090e8094d8216bd9681a057003967a28584d2074d3",
+    "lowq":
+        "3cc7f0ad88e6cb252a5a30a0188270a8dc0d73a371fb8c87325f48859043a7d9",
+    "paired":
+        "01827f39c336cb48d28b357837403c065de124950aec3ef0b977bf4425e4cd04",
+    "umi3":
+        "8632b4dceeeec4f155df360650de44a222e333f9d974a03242b4e1712f4bcd0b",
+    "umi12-d2":
+        "914ae3f3e7e1293ee3ce4a5b67c8feb77b858885e79f78f253117eeda1000fff",
+    "indel-d2":
+        "5964556b0ddb5f122ca983f6e5da1c1bd5bae5c635d9ae35264a6408fdd976f5",
 }
 
-# Generated files: (reads, dup_factor, error_rate, indel_rate), 100 bp,
-# seed 7.  "default" is the JAX package's benchmark input (bench.py),
-# "dense" its deep-sequencing profile, "small" one length group small
-# enough for the tile sweep, "indel" the default profile with one base
-# deleted or inserted in 10% of reads (lengths 99-101).
+# Generated files: the keyword arguments of ``generate_fastq`` beside the
+# path, 100 bp reads and 12-base UMIs, seed 7.  "default" is the JAX
+# package's benchmark input (bench.py), "dense" its deep-sequencing
+# profile, "small" one length group small enough for the tile sweep,
+# "indel" the default profile with one base deleted or inserted in 10% of
+# reads (lengths 99-101), "lowq" the default profile with every quality
+# of 5% of the reads in Q2-Q10.  "mate" (second reads) and "umi" (12-base
+# UMIs) are written in the same pass as "default", record for record.
 FILES = {
-    "default": (1_000_000, 5, None, 0.0),
-    "dense": (1_000_000, 30, 0.005, 0.0),
-    "small": (1_500, 5, None, 0.0),
-    "indel": (1_000_000, 5, None, 0.1),
+    "default": {"n_reads": 1_000_000},
+    "dense": {"n_reads": 1_000_000, "dup_factor": 30, "error_rate": 0.005},
+    "small": {"n_reads": 1_500},
+    "indel": {"n_reads": 1_000_000, "indel_rate": 0.1},
+    "lowq": {"n_reads": 1_000_000, "lowq_rate": 0.05},
 }
-# Runs: (file, check length, Levenshtein).  "umi12" dedups the default
-# file on its first 12 bases, as UMI-keyed runs do; "edit" is bench.py's
-# --edit run of the default file.
+COMPANIONS = {"mate": ("default", "mate_path"), "umi": ("default", "umi_path")}
+# Runs: (files, check lengths, max distance, dissection method,
+# Levenshtein).  "umi12" dedups the default file on its first 12 bases, as
+# UMI-keyed runs do; "edit" is bench.py's --edit run of the default file.
 INPUTS = {
-    "default": ("default", None, False),
-    "dense": ("dense", None, False),
-    "umi12": ("default", "12", False),
-    "small": ("small", None, False),
-    "edit": ("default", None, True),
-    "indel": ("indel", None, True),
+    "default": (("default",), None, 1, "directional", False),
+    "dense": (("dense",), None, 1, "directional", False),
+    "umi12": (("default",), "12", 1, "directional", False),
+    "small": (("small",), None, 1, "directional", False),
+    "edit": (("default",), None, 1, "directional", True),
+    "indel": (("indel",), None, 1, "directional", True),
 }
+# The ``configs`` phase: the documented configurations of the system
+# (BASELINE.json, "configs") that the runs above do not cover, each at 1M
+# records per file.  Configuration 5 (--edit, directional, d=1) is the
+# "edit" and "indel" runs above.
+CONFIGS = {
+    # 1: single-end, Hamming d=1, highest_count.
+    "highest": (("default",), None, 1, "highest_count", False),
+    # 2: single-end, directional, d=1, a quality filter that drops reads.
+    "lowq": (("lowq",), None, 1, "directional", False),
+    # 3: paired R1 + R2 with --check-lengths 16,8, directional.
+    "paired": (("default", "mate"), "16,8", 1, "directional", False),
+    # 4: two read files and a UMI file, adjacency, d=2 (212-base keys).
+    "umi3": (("default", "mate", "umi"), None, 2, "adjacency", False),
+    # 4's distance and method on UMI-style 12-base keys: three 4-base
+    # pigeonhole segments, so buckets of hundreds of keys.
+    "umi12-d2": (("default",), "12", 2, "adjacency", False),
+    # 5 at d=2: the Levenshtein path on the input with indels.
+    "indel-d2": (("indel",), None, 2, "directional", True),
+}
+INPUTS.update(CONFIGS)
 
 # Kernel: (source, the TPU kernel it replaces).
 KERNELS = {
@@ -251,15 +322,49 @@ def apply_indels(rng, seqs: np.ndarray, rate: float, bases: np.ndarray):
     return out, lengths
 
 
+def fastq_block(start: int, seqs: np.ndarray, quals: np.ndarray,
+                digits: int = 9) -> bytes:
+    """FASTQ bytes of fixed-width records ``@read<id>``, ids from
+    ``start``: one uint8 matrix filled by column slices."""
+    count, read_len = seqs.shape
+    head_len = 5 + digits + 1               # "@read" + id + "\n"
+    block = np.empty((count, head_len + read_len + 3 + read_len + 1),
+                     dtype=np.uint8)
+    block[:, 0:5] = np.frombuffer(b"@read", dtype=np.uint8)
+    ids = np.arange(start, start + count, dtype=np.int64)
+    for d in range(digits):
+        block[:, 5 + d] = 48 + (ids // 10 ** (digits - 1 - d)) % 10
+    block[:, head_len - 1] = 10
+    block[:, head_len:head_len + read_len] = seqs
+    block[:, head_len + read_len:head_len + read_len + 3] = \
+        np.frombuffer(b"\n+\n", dtype=np.uint8)
+    qstart = head_len + read_len + 3
+    block[:, qstart:qstart + read_len] = quals
+    block[:, -1] = 10
+    return block.tobytes()
+
+
 def generate_fastq(path: str, n_reads: int, read_len: int, umi_len: int,
                    seed: int = 7, dup_factor: int = 5,
                    error_rate: "float | None" = None,
-                   indel_rate: float = 0.0) -> None:
+                   indel_rate: float = 0.0, lowq_rate: float = 0.0,
+                   mate_path: "str | None" = None,
+                   umi_path: "str | None" = None) -> None:
     """Copy of the JAX package's ``bench.generate_fastq``: a synthetic
     duplicate-heavy FASTQ written as BGZF through the port's writer.
+    With the options below at their defaults the bytes are
+    ``bench.generate_fastq``'s.
+
     ``indel_rate`` > 0 adds one deletion or insertion to that share of
-    the reads after the substitutions (``apply_indels``); at 0 the bytes
-    are ``bench.generate_fastq``'s."""
+    the reads after the substitutions (``apply_indels``).  ``lowq_rate``
+    > 0 redraws every quality of that share of the reads in Q2-Q10, so
+    that the quality filter drops them.  ``mate_path`` and ``umi_path``
+    name two more files written in the same pass, record for record
+    under the same names: the second read of each molecule (``read_len``
+    bases, 15% of reads with one substitution) and the molecule's UMI
+    (``umi_len`` bases, 5% with one substitution).  They draw from a
+    generator of their own (``seed + 1``), so the file at ``path`` keeps
+    its bytes."""
     from fastqdedup_tpu_torch.io.bgzf import BgzfWriter
 
     rng = np.random.default_rng(seed)
@@ -268,9 +373,20 @@ def generate_fastq(path: str, n_reads: int, read_len: int, umi_len: int,
     molecules = bases[rng.integers(0, 4, size=(n_molecules, read_len),
                                    dtype=np.uint8)]
     digits = 9
-    head_len = 5 + digits + 1               # "@read" + id + "\n"
-    rec_len = head_len + read_len + 3 + read_len + 1
-    with BgzfWriter(path, compresslevel=1) as f:
+    extra = []      # (writer, molecule pool, share with one substitution)
+    if mate_path or umi_path:
+        rng2 = np.random.default_rng(seed + 1)
+        for extra_path, width, share in ((mate_path, read_len, 0.15),
+                                         (umi_path, umi_len, 0.05)):
+            pool = bases[rng2.integers(0, 4, size=(n_molecules, width),
+                                       dtype=np.uint8)]
+            if extra_path:
+                extra.append((BgzfWriter(extra_path, compresslevel=1), pool,
+                              share))
+    with contextlib.ExitStack() as stack:
+        f = stack.enter_context(BgzfWriter(path, compresslevel=1))
+        for writer, _, _ in extra:
+            stack.enter_context(writer)
         step = 250_000
         for start in range(0, n_reads, step):
             stop = min(start + step, n_reads)
@@ -289,6 +405,15 @@ def generate_fastq(path: str, n_reads: int, read_len: int, umi_len: int,
                 seqs = np.where(
                     err, bases[rng.integers(0, 4, size=seqs.shape,
                                             dtype=np.uint8)], seqs)
+            for writer, pool, share in extra:
+                other = pool[picks]
+                errored = np.flatnonzero(rng2.random(count) < share)
+                pos = rng2.integers(0, other.shape[1], size=len(errored))
+                other[errored, pos] = bases[
+                    rng2.integers(0, 4, size=len(errored))]
+                writer.write(fastq_block(start, other, (33 + rng2.integers(
+                    30, 41, size=other.shape, dtype=np.int8)).astype(
+                        np.uint8), digits))
             if indel_rate:
                 f.write(indel_block(rng, seqs, start, indel_rate, bases,
                                     digits))
@@ -296,19 +421,12 @@ def generate_fastq(path: str, n_reads: int, read_len: int, umi_len: int,
             quals = (33 + rng.integers(
                 30, 41, size=(count, read_len),
                 dtype=np.int8)).astype(np.uint8)
-            block = np.empty((count, rec_len), dtype=np.uint8)
-            block[:, 0:5] = np.frombuffer(b"@read", dtype=np.uint8)
-            ids = np.arange(start, stop, dtype=np.int64)
-            for d in range(digits):
-                block[:, 5 + d] = 48 + (ids // 10 ** (digits - 1 - d)) % 10
-            block[:, head_len - 1] = 10
-            block[:, head_len:head_len + read_len] = seqs
-            block[:, head_len + read_len:head_len + read_len + 3] = \
-                np.frombuffer(b"\n+\n", dtype=np.uint8)
-            qstart = head_len + read_len + 3
-            block[:, qstart:qstart + read_len] = quals
-            block[:, -1] = 10
-            f.write(block.tobytes())
+            if lowq_rate:
+                low = np.flatnonzero(rng.random(count) < lowq_rate)
+                quals[low] = (33 + rng.integers(
+                    2, 11, size=(len(low), read_len),
+                    dtype=np.int8)).astype(np.uint8)
+            f.write(fastq_block(start, seqs, quals, digits))
 
 
 def indel_block(rng, seqs: np.ndarray, start: int, rate: float,
@@ -340,12 +458,36 @@ def indel_block(rng, seqs: np.ndarray, start: int, rate: float,
     return full[keep].tobytes()
 
 
-def decompressed_sha256(path: str) -> str:
+def decompressed_sha256(*paths: str) -> str:
+    """sha256 of the decompressed files, concatenated in order."""
     digest = hashlib.sha256()
-    with gzip.open(path, "rb") as f:
-        for block in iter(lambda: f.read(1 << 22), b""):
-            digest.update(block)
+    for path in paths:
+        with gzip.open(path, "rb") as f:
+            for block in iter(lambda: f.read(1 << 22), b""):
+                digest.update(block)
     return digest.hexdigest()
+
+
+def generate_files(workdir: str, names) -> dict:
+    """Generate the named ``FILES`` (and companions) into ``workdir``;
+    returns name -> path.  A companion comes from its main file's pass."""
+    paths = {name: os.path.join(workdir, f"{name}.fastq.gz")
+             for name in names}
+    mains = dict.fromkeys(
+        COMPANIONS[name][0] if name in COMPANIONS else name
+        for name in names)
+    for main in mains:
+        paths.setdefault(main, os.path.join(workdir, f"{main}.fastq.gz"))
+        extra = {arg: paths[name] for name, (owner, arg)
+                 in COMPANIONS.items() if owner == main and name in names}
+        generate_fastq(paths[main], read_len=100, umi_len=12, seed=7,
+                       **FILES[main], **extra)
+    return paths
+
+
+def files_of(names) -> list:
+    """Every file the named runs read, each once."""
+    return list(dict.fromkeys(f for name in names for f in INPUTS[name][0]))
 
 
 # --------------------------------------------------------------------- #
@@ -780,11 +922,50 @@ def check_kernels(dev) -> dict:
            gathered_plain, True,
            cost=banded_cost(lens[ci.long()].cpu().numpy(),
                             lens[cj.long()].cpu().numpy(), 1, 112, True))
+    # The nibble-packed key matrix: the same batch with every symbol at
+    # most 14 and 0xFF past the lengths, verified from the packed matrix
+    # (rows gathered and unpacked by torch ops, then the paired entry)
+    # and from the plain one (the indexed entry).
+    from fastqdedup_tpu_torch.ops.edit import (
+        edit_verify_indexed,
+        pack_nibble_rows,
+    )
+    real = torch.arange(112, device=dev)[None, :] < lens[:, None]
+    keys = torch.where(real, keys % 15, 0xFF).to(torch.uint8)
+    keys2 = torch.from_numpy(pack_nibble_rows(keys.cpu().numpy())).to(dev)
+    ci_np, cj_np = ci.cpu().numpy(), cj.cpu().numpy()
+    for d in (0, 1, 2):
+        got = edit_verify_indexed(keys2, lens, ci_np, cj_np, d, packed=True)
+        want = edit_verify_indexed(keys, lens, ci_np, cj_np, d)
+        record(name, f"packed key matrix [400000, 56] against the plain "
+               f"one: P={p} d={d}", torch.from_numpy(got),
+               torch.from_numpy(want), None, None, False)
     return summary
 
 
+def check_warmup() -> None:
+    """The ``warmup`` phase: ``warmup()`` once, its steps printed, and no
+    launch of it counted as real work."""
+    from fastqdedup_tpu_torch.ops import kernel_lib
+    from fastqdedup_tpu_torch.warmup import warmup
+
+    before = launch_counts()
+    steps = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(steps):
+        warmup()
+    emit({"phase": "warmup", "seconds": time.perf_counter() - t0,
+          "steps": steps.getvalue().splitlines(),
+          "warmup_launches": dict(kernel_lib.WARMUP_LAUNCHES)})
+    if launch_counts() != before:
+        fail("warmup() counted its launches as real work")
+    if set(kernel_lib.WARMUP_LAUNCHES) != set(KERNELS):
+        fail(f"warmup() launched {sorted(kernel_lib.WARMUP_LAUNCHES)}, "
+             f"not every kernel")
+
+
 # --------------------------------------------------------------------- #
-# Phases 4-5: the pipeline
+# Phases 5-7: the pipeline
 
 
 @contextlib.contextmanager
@@ -815,27 +996,41 @@ def reset_launch_counts() -> None:
     edit_kernels.reset_launches()
 
 
-def run_pipeline(workdir: str, name: str, src: str, n_reads: int,
-                 check_length, edit: bool, tag: str,
-                 overrides=None) -> dict:
+def run_pipeline(workdir: str, name: str, files: dict, tag: str,
+                 overrides=None, phase=None) -> dict:
+    """One run of ``INPUTS[name]`` through ``deduplicate_cluster`` on the
+    generated ``files``; the sha256 of its decompressed outputs (several
+    outputs concatenated in order) must be the pinned one."""
+    from fastqdedup_tpu_torch import dissect
     from fastqdedup_tpu_torch.keys import length_string_to_slices
     from fastqdedup_tpu_torch.pipeline import deduplicate_cluster
 
-    out = os.path.join(workdir, f"out_{tag}.fastq.gz")
+    file_names, check_length, max_distance, method, edit = INPUTS[name]
+    srcs = [files[f] for f in file_names]
+    outs = [os.path.join(workdir, f"out_{tag}_{i}.fastq.gz")
+            for i in range(len(srcs))]
     slices = length_string_to_slices(check_length) if check_length else None
+    n_reads = FILES[file_names[0]]["n_reads"]
     before = launch_counts()
     with environment(overrides or {}):
         t0 = time.perf_counter()
-        deduplicate_cluster([src], [out], slices, use_edit_distance=edit)
+        deduplicate_cluster(
+            srcs, outs, slices, max_distance=max_distance,
+            cluster_dissection_func=getattr(
+                dissect, f"cluster_dissection_{method}"),
+            use_edit_distance=edit)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     after = launch_counts()
     launches = {k: after[k] - before[k] for k in after}
-    sha = decompressed_sha256(out)
-    os.unlink(out)
+    sha = decompressed_sha256(*outs)
+    for out in outs:
+        os.unlink(out)
     expected = EXPECTED_SHA256[name]
-    line = {"phase": "pipeline" if name == "default" else "route",
-            "run": tag, "input": name, "reads": n_reads, "edit": edit,
+    line = {"phase": phase or ("pipeline" if name == "default" else "route"),
+            "run": tag, "input": name, "files": list(file_names),
+            "check_lengths": check_length, "max_distance": max_distance,
+            "method": method, "reads": n_reads, "edit": edit,
             "seconds": seconds, "reads_per_s": n_reads / seconds,
             "sha256": sha, "expected_sha256": expected,
             "launches": launches}
@@ -845,6 +1040,108 @@ def run_pipeline(workdir: str, name: str, src: str, n_reads: int,
     if sha != expected:
         fail(f"{tag}: output sha256 {sha} != expected {expected}")
     return line
+
+
+@contextlib.contextmanager
+def launch_shapes(store: list):
+    """Record every kernel launch of real work made within the block, at
+    the library's C entry points, as ``(entry point, rows, max
+    distance)``: ``rows`` is a bucket's or tile's row count S for the
+    all-pairs kernel, the lanes of a row for the pair-list kernel, the
+    padded width for the edit kernel.  The prewarm thread's launches are
+    left out, as they are from ``LAUNCHES``."""
+    from fastqdedup_tpu_torch.ops import kernel_lib
+
+    lib = kernel_lib.library()
+    # entry point: (position of rows, position of the distance)
+    entries = {"fqd_pairs_within_packed": (4, 10),
+               "fqd_rowwise_within_packed": (4, 5),
+               "fqd_banded_within_edit": (8, 9)}
+    inner = {name: getattr(lib, name) for name in entries}
+
+    def spy(name):
+        rows_at, d_at = entries[name]
+
+        def call(*args):
+            if not kernel_lib.in_warmup():
+                store.append((name, int(args[rows_at]), int(args[d_at])))
+            return inner[name](*args)
+
+        return call
+
+    for name in entries:
+        setattr(lib, name, spy(name))
+    try:
+        yield
+    finally:
+        for name, fn in inner.items():
+            setattr(lib, name, fn)
+
+
+# What the configs phase must have launched, on which run it is forced
+# where measured-rate routing did not reach it, and with which rate knobs.
+CONFIG_LAUNCHES = (
+    ("all-pairs kernel at d=2 on buckets of S >= 512",
+     lambda name, rows, d: name == "fqd_pairs_within_packed"
+     and rows >= 512 and d == 2,
+     "umi12-d2", {"FASTQDEDUP_DISPATCH_S": "1e-9",
+                  "FASTQDEDUP_H2D_RATE": "1e-9"}),
+    ("pair-list kernel at d=2",
+     lambda name, rows, d: name == "fqd_rowwise_within_packed" and d == 2,
+     "umi3", {"FASTQDEDUP_DISPATCH_S": "1e-9",
+              "FASTQDEDUP_H2D_RATE": "1e15",
+              "FASTQDEDUP_HOST_RATE": "1.0"}),
+    ("edit kernel at d=2",
+     lambda name, rows, d: name == "fqd_banded_within_edit" and d == 2,
+     "indel-d2", None),
+)
+
+
+def shape_counts(shapes: list) -> dict:
+    """``"entry point rows=R d=D"`` -> launches."""
+    counts: dict = {}
+    for name, rows, d in shapes:
+        key = f"{name} rows={rows} d={d}"
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def run_configs(workdir: str, files: dict) -> dict:
+    """The ``configs`` phase: every run of ``CONFIGS`` against its pinned
+    sha256, launch counts from 0, then the launches of ``CONFIG_LAUNCHES``
+    (forced with the rate knobs where the measured rates did not reach
+    one; a forced run writes the unforced bytes or fails).  Returns the
+    phase's launch counts."""
+    reset_launch_counts()
+    shapes: list = []
+    t0 = time.perf_counter()
+    for name in CONFIGS:
+        mark = len(shapes)
+        with launch_shapes(shapes):
+            run_pipeline(workdir, name, files, name, phase="configs")
+        emit({"phase": "configs", "run": name,
+              "launch_shapes": shape_counts(shapes[mark:])})
+    for label, matches, name, overrides in CONFIG_LAUNCHES:
+        if any(matches(*shape) for shape in shapes):
+            continue
+        if overrides is None:
+            fail(f"configs: {name!r} did not launch the {label}")
+        emit({"phase": "configs", "note": f"measured-rate routing did not "
+              f"launch the {label}; forcing it on {name!r}",
+              "forced": overrides})
+        mark = len(shapes)
+        with launch_shapes(shapes):
+            run_pipeline(workdir, name, files, f"{name}-forced", overrides,
+                         phase="configs")
+        emit({"phase": "configs", "run": f"{name}-forced",
+              "launch_shapes": shape_counts(shapes[mark:])})
+        if not any(matches(*shape) for shape in shapes[mark:]):
+            fail(f"configs: forced run of {name!r} did not launch the "
+                 f"{label}")
+    counts = launch_counts()
+    emit({"phase": "configs", "seconds": time.perf_counter() - t0,
+          "launches": counts, "launch_shapes": shape_counts(shapes)})
+    return counts
 
 
 @contextlib.contextmanager
@@ -912,7 +1209,7 @@ def check_trie_api() -> dict:
 
 
 # --------------------------------------------------------------------- #
-# Phase 7: two processes of one torch.distributed job
+# Phase 9: two processes of one torch.distributed job
 
 
 def split_records(src: str, dests, n_first: int) -> None:
@@ -944,7 +1241,7 @@ def profiled_device_ms(prof) -> float:
 
 
 def distributed_worker(pid: int, port: int, spec_path: str) -> int:
-    """Phase 7's child process: join the 2-process job, run each job of
+    """Phase 9's child process: join the 2-process job, run each job of
     the spec (and, where it asks, once more under the profiler), print
     one JSON line per run."""
     sys.path.insert(0, HERE)
@@ -1035,7 +1332,7 @@ def distributed_worker(pid: int, port: int, spec_path: str) -> int:
 
 
 def run_distributed(workdir: str, files: dict, single: dict) -> dict:
-    """Phase 7: the 2-process job in two child processes of this script.
+    """Phase 9: the 2-process job in two child processes of this script.
     Checks every run's merged output against the pinned sha256 and the
     required launches; returns the launches of the unprofiled runs,
     summed over both processes.  ``single`` maps an input to its
@@ -1045,7 +1342,8 @@ def run_distributed(workdir: str, files: dict, single: dict) -> dict:
     halves = [os.path.join(workdir, f"default_half{p}.fastq.gz")
               for p in range(2)]
     t0 = time.perf_counter()
-    split_records(files["default"], halves, FILES["default"][0] // 2)
+    split_records(files["default"], halves,
+                  FILES["default"]["n_reads"] // 2)
     emit({"phase": "distributed", "note": "default input split into two "
           "BGZF files of 500000 records", "seconds": time.perf_counter() - t0})
 
@@ -1059,7 +1357,7 @@ def run_distributed(workdir: str, files: dict, single: dict) -> dict:
                 "FASTQDEDUP_DISPATCH_S": "1e-9",
                 "FASTQDEDUP_H2D_RATE": "1e-9"}),
             ("edit", "banded_within_edit_distance", None)):
-        file, check_length, edit = INPUTS[name]
+        (file,), check_length, _, _, edit = INPUTS[name]
         jobs.append({"tag": name, "input": name,
                      "inputs": [[files[file]]] * 2,
                      "outputs": [[out(name)]] * 2,
@@ -1163,7 +1461,7 @@ def run_distributed(workdir: str, files: dict, single: dict) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# Phases 8-9: labels on a mesh of devices, the device quality filter
+# Phases 10-11: labels on a mesh of devices, the device quality filter
 
 
 def check_mesh(n: int, ei: np.ndarray, ej: np.ndarray) -> None:
@@ -1399,19 +1697,9 @@ def run_repeats(repeats: int, names) -> int:
         prefix="repeats_", dir=os.path.join(HERE, "fastqdedup_tpu_torch",
                                             "build"))
     try:
-        files = {}
+        files = generate_files(workdir, files_of(names))
         for name in names:
-            file, check_length, edit = INPUTS[name]
-            if file not in files:
-                n_reads, dup, err, indel = FILES[file]
-                files[file] = os.path.join(workdir, f"{file}.fastq.gz")
-                generate_fastq(files[file], n_reads, 100, 12, seed=7,
-                               dup_factor=dup, error_rate=err,
-                               indel_rate=indel)
-        for name in names:
-            file, check_length, edit = INPUTS[name]
-            lines = [run_pipeline(workdir, name, files[file], FILES[file][0],
-                                  check_length, edit, f"{name}-r{i}")
+            lines = [run_pipeline(workdir, name, files, f"{name}-r{i}")
                      for i in range(repeats + 1)]
             seconds = [line["seconds"] for line in lines]
             emit({"phase": "repeats", "input": name,
@@ -1419,6 +1707,242 @@ def run_repeats(repeats: int, names) -> int:
                   "median_repeat_s": statistics.median(seconds[1:]),
                   "launches_per_run": lines[-1]["launches"]})
     finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return 0
+
+
+# --------------------------------------------------------------------- #
+# --first-run: what the first run of a process pays
+
+
+def timed_calls(module, name: str, seconds: dict) -> None:
+    """Replace ``module.name`` by a wrapper that adds each call's time to
+    ``seconds[name]``."""
+    inner = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            seconds[name] = seconds.get(name, 0.0) + \
+                time.perf_counter() - t0
+
+    setattr(module, name, wrapper)
+
+
+PROBES = ("measured_dispatch_seconds", "measured_h2d_rate",
+          "measured_host_byte_rate")
+
+
+def first_run_worker(started: float, spawned: str, variant: str,
+                     name: str, workdir: str) -> int:
+    """One fresh process of ``--first-run``.  ``isolated``: the parts of
+    bringing the card up, one after the other in an idle process, no
+    pipeline.  ``prewarm`` / ``no-prewarm``: the named run once, with the
+    prewarm thread or with ``prewarm_async`` stubbed to start none; the
+    probes and the library load are timed where the run reaches them."""
+    import logging
+
+    line = {"phase": "first-run", "variant": variant, "input": name,
+            "interpreter_and_imports_s": started - float(spawned)}
+    sys.path.insert(0, HERE)
+    os.environ["FASTQDEDUP_TORCH_DEVICE"] = "cuda"
+    from fastqdedup_tpu_torch import warmup
+    from fastqdedup_tpu_torch.ops import bucket, kernel_lib
+    from fastqdedup_tpu_torch.runtime import device
+
+    t_start = time.perf_counter()
+    if variant == "isolated":
+        dev = device()
+        steps = [("context_s", lambda: warmup._first_touch(dev)),
+                 ("library_load_s", kernel_lib.library)]
+        steps += [(f"{probe}_s", getattr(bucket, probe)) for probe in PROBES]
+        steps += [
+            ("first_hamming_launches_s",
+             lambda: warmup._launch_hamming(dev, 100, 5, 1)),
+            ("first_edit_launches_s",
+             lambda: warmup._launch_edit(dev, 100, 1))]
+        for key, fn in steps:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            line[key] = time.perf_counter() - t0
+        line["whole_s"] = time.perf_counter() - t_start
+        emit(line)
+        return 0
+
+    in_situ: dict = {}
+    for probe in PROBES:
+        timed_calls(bucket, probe, in_situ)
+    from fastqdedup_tpu_torch.ops import edit_kernels, hamming_kernels
+    for module in (kernel_lib, hamming_kernels, edit_kernels):
+        timed_calls(module, "library", in_situ)
+    threads = []
+    if variant == "no-prewarm":
+        warmup.prewarm_async = lambda *args, **kwargs: None
+    else:
+        inner = warmup.prewarm_async
+
+        def keep_thread(*args, **kwargs):
+            threads.append(inner(*args, **kwargs))
+            return threads[-1]
+
+        warmup.prewarm_async = keep_thread
+    marks = []
+
+    class Marks(logging.Handler):
+        def emit(self, record):
+            marks.append((time.perf_counter(), record.getMessage()))
+
+    logger = logging.getLogger("fastqdedup")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(Marks())
+    with open(os.path.join(workdir, "files.json")) as f:
+        files = json.load(f)
+    t0 = time.perf_counter()
+    run = run_pipeline(workdir, name, files,
+                       f"{name}-{variant}-{os.getpid()}")
+    ends = {word: t for t, message in marks
+            for word in ("Processed", "Found", "Filtered")
+            if message.startswith(word)}
+    if len(ends) != 3:
+        fail(f"first-run: pass marks missing in {marks}")
+    line.update({
+        "pass1_s": ends["Processed"] - t0,
+        "pass2_s": ends["Found"] - ends["Processed"],
+        "pass3_s": ends["Filtered"] - ends["Found"],
+        "run_s": run["seconds"],
+        "whole_s": started - float(spawned) + time.perf_counter() - t_start,
+        "in_run_s": in_situ,
+        "prewarm_thread_s": threads[0].seconds if threads and threads[0]
+        else None,
+        "launches": run["launches"],
+        "warmup_launches": dict(kernel_lib.WARMUP_LAUNCHES),
+        "sha256_held": run["sha256"] == run["expected_sha256"]})
+    emit(line)
+    return 0
+
+
+def run_first_runs(names) -> int:
+    """``--first-run NAME...``: each named run once in a fresh process,
+    with the prewarm thread, without, without, with; and one process
+    that times the parts of bringing the card up in isolation.  The
+    kernel library is built before (a first build is the ``build``
+    line's seconds)."""
+    workdir = tempfile.mkdtemp(
+        prefix="first_", dir=os.path.join(HERE, "fastqdedup_tpu_torch",
+                                          "build"))
+    try:
+        files = generate_files(workdir, files_of(names))
+        with open(os.path.join(workdir, "files.json"), "w") as f:
+            json.dump(files, f)
+        # One run here first, so that no child builds the native ingest
+        # library or finds its input outside the page cache.
+        run_pipeline(workdir, names[0], files, "parent")
+        jobs = [("isolated", "none")] + [
+            (variant, name) for name in names
+            for variant in ("prewarm", "no-prewarm", "no-prewarm",
+                            "prewarm")]
+        for variant, name in jobs:
+            done = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--first-run-worker", repr(time.time()), variant, name,
+                 workdir], env=dict(os.environ, PYTHONPATH=HERE), cwd=HERE,
+                capture_output=True, text=True, timeout=600)
+            if done.returncode != 0:
+                print(done.stderr[-4000:], file=sys.stderr)
+                fail(f"first-run {variant} {name}: exit {done.returncode}")
+            sys.stdout.write(done.stdout)
+            sys.stdout.flush()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return 0
+
+
+# --------------------------------------------------------------------- #
+# --packed-keys: the edit route's key matrix, nibble-packed or plain
+
+
+def run_packed_keys(rounds: int, names) -> int:
+    """``--packed-keys ROUNDS NAME...``: each named Levenshtein run in
+    ``rounds`` rounds of plain, packed, packed, plain
+    (``engine.PACK_KEY_MATRIX`` off and on), every sha256 checked.  The
+    keys of these inputs are raw ASCII, which does not pack, so both
+    forms get their entries as dense alphabet indices first (timed as
+    ``encode_s``, paid by both).  Per run: the whole run, the edit-edge
+    step, the packing and the verification batches; and once per input
+    the copy of a matrix of the plain and of the packed size."""
+    from fastqdedup_tpu_torch import engine
+    from fastqdedup_tpu_torch.ops import edit as edit_ops
+
+    os.environ["FASTQDEDUP_TORCH_DEVICE"] = "cuda"
+    dev = torch.device("cuda", 0)
+    stats: dict = {}
+    shape: dict = {}
+    for fn in ("pack_nibble_rows", "edit_verify_indexed"):
+        timed_calls(edit_ops, fn, stats)
+    inner = engine._edit_edges_entries
+
+    def dense_entries(entries, n, max_distance, shard=(0, 1)):
+        t0 = time.perf_counter()
+        present = np.zeros(256, dtype=bool)
+        for _, matrix, _ in entries:
+            present |= np.bincount(matrix.reshape(-1), minlength=256) > 0
+        lut = (np.cumsum(present) - 1).astype(np.uint8)
+        dense = [(length, lut[matrix], idx)
+                 for length, matrix, idx in entries]
+        t1 = time.perf_counter()
+        out = inner(dense, n, max_distance, shard)
+        stats["encode_s"] = t1 - t0
+        stats["edit_edges_s"] = time.perf_counter() - t1
+        shape["n"] = n
+        shape["width"] = -(-max(length for length, _, _ in entries)
+                           // 16) * 16
+        return out
+
+    engine._edit_edges_entries = dense_entries
+    workdir = tempfile.mkdtemp(
+        prefix="packed_", dir=os.path.join(HERE, "fastqdedup_tpu_torch",
+                                           "build"))
+    try:
+        files = generate_files(workdir, files_of(names))
+        for name in names:
+            if not INPUTS[name][4]:
+                fail(f"--packed-keys: {name!r} is not a Levenshtein run")
+            run_pipeline(workdir, name, files, f"{name}-first")
+            rows = {False: [], True: []}
+            for turn in range(rounds):
+                for packed in (False, True, True, False):
+                    engine.PACK_KEY_MATRIX = packed
+                    stats.clear()
+                    line = run_pipeline(workdir, name, files,
+                                        f"{name}-t{turn}-p{int(packed)}")
+                    rows[packed].append({"run_s": line["seconds"],
+                                         **stats})
+            engine.PACK_KEY_MATRIX = False
+            copies = {}
+            for label, width in (("plain", shape["width"]),
+                                 ("packed", shape["width"] // 2)):
+                matrix = torch.zeros((shape["n"], width), dtype=torch.uint8)
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    matrix.to(dev)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                copies[label] = {"bytes": matrix.numel(), "copy_s": times}
+            for packed in (False, True):
+                keys = sorted({k for row in rows[packed] for k in row})
+                emit({"phase": "packed-keys", "input": name,
+                      "packed": packed, "runs": len(rows[packed]),
+                      "median_s": {k: statistics.median(
+                          row.get(k, 0.0) for row in rows[packed])
+                          for k in keys},
+                      "run_s": [row["run_s"] for row in rows[packed]],
+                      "copy": copies["packed" if packed else "plain"]})
+    finally:
+        engine._edit_edges_entries = inner
         shutil.rmtree(workdir, ignore_errors=True)
     return 0
 
@@ -1455,6 +1979,10 @@ def main(argv) -> int:
 
     if argv[:1] == ["--repeats"]:
         return run_repeats(int(argv[1]), argv[2:])
+    if argv[:1] == ["--first-run"]:
+        return run_first_runs(argv[1:])
+    if argv[:1] == ["--packed-keys"]:
+        return run_packed_keys(int(argv[1]), argv[2:])
     if argv == ["--phases"]:
         return run_phases(dev)
     if argv == ["--edit-variants"]:
@@ -1464,6 +1992,7 @@ def main(argv) -> int:
         return 0
 
     os.environ["FASTQDEDUP_TORCH_DEVICE"] = "cuda"
+    check_warmup()
     from fastqdedup_tpu_torch.ops.bucket import measured_h2d_rate
 
     # The rate the Hamming routes weigh copies with.
@@ -1472,16 +2001,13 @@ def main(argv) -> int:
         prefix="smoke_", dir=os.path.join(HERE, "fastqdedup_tpu_torch",
                                           "build"))
     try:
-        files = {}
-        for name, (n_reads, dup, err, indel) in FILES.items():
-            files[name] = os.path.join(workdir, f"{name}.fastq.gz")
-            generate_fastq(files[name], n_reads, 100, 12, seed=7,
-                           dup_factor=dup, error_rate=err, indel_rate=indel)
+        t0 = time.perf_counter()
+        files = generate_files(workdir, files_of(INPUTS))
+        emit({"phase": "generate", "files": sorted(files),
+              "seconds": time.perf_counter() - t0})
 
         def run(name, tag, overrides=None):
-            file, check_length, edit = INPUTS[name]
-            return run_pipeline(workdir, name, files[file], FILES[file][0],
-                                check_length, edit, tag, overrides)
+            return run_pipeline(workdir, name, files, tag, overrides)
 
         def run_until_launched(kernel, name, overrides):
             line = run(name, name)
@@ -1496,8 +2022,8 @@ def main(argv) -> int:
 
         # The Hamming path: counts from 0, read after its runs.  The
         # single-process seconds of default, umi12 and edit are the
-        # baseline of the 2-process runs in phase 7; the umi12 edge list
-        # feeds phase 8.
+        # baseline of the 2-process runs in phase 9; the umi12 edge list
+        # feeds phase 10.
         reset_launch_counts()
         run("default", "default-first")
         single = {"default": run("default", "default-repeat")["seconds"]}
@@ -1528,6 +2054,8 @@ def main(argv) -> int:
                 fail(f"{name}: the pipeline did not launch "
                      f"banded_within_edit_distance")
         edit_launches = launch_counts()
+        # The documented configurations, counts from 0 once more.
+        config_launches = run_configs(workdir, files)
         # The Trie API: a second entry point of the Levenshtein path,
         # with counts of its own.
         check_trie_api()
@@ -1541,6 +2069,7 @@ def main(argv) -> int:
     by_path = {
         name: {"hamming": hamming_launches[name],
                "edit": edit_launches[name],
+               "configs": config_launches[name],
                "distributed": distributed_launches.get(name, 0)}
         for name in KERNELS}
     for name, counts in by_path.items():
@@ -1561,6 +2090,8 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--first-run-worker"]:
+        sys.exit(first_run_worker(time.time(), *sys.argv[2:]))
     if sys.argv[1:2] == ["--distributed-worker"]:
         sys.exit(distributed_worker(int(sys.argv[2]), int(sys.argv[3]),
                                     sys.argv[4]))

@@ -53,7 +53,13 @@ def argument_parser() -> argparse.ArgumentParser:
                "(default cuda; without CUDA the run fails unless cpu is "
                "asked for); FASTQDEDUP_PROFILE=<dir> captures a "
                "torch.profiler trace; FASTQDEDUP_INGEST_READERS=<n> sets "
-               "parallel BGZF range readers.")
+               "parallel BGZF range readers; FASTQDEDUP_DEVICE_QUALITY=1 "
+               "moves the quality filter to the accelerator (float32 "
+               "arithmetic — averages may differ from the bit-exact host "
+               "path in the last bits, and strict phred range validation "
+               "is skipped); FASTQDEDUP_REQUIRE_MESH=1 makes any "
+               "device-mesh clustering fallback fatal instead of degrading "
+               "to the host path.")
     parser.add_argument(
         "fastq", metavar="FASTQ", nargs="+",
         help="Input FASTQ file(s): R1, optionally followed by an R2 mate "

@@ -17,7 +17,9 @@ partition at once:
    distances.h:16-20);
 2. within each group, find all within-distance pairs on device — brute-force
    all-pairs tiles when the group is small, pigeonhole bucketing when large;
-3. union-find over the resulting edge list -> components.
+3. in edit mode additionally generate shifted-segment candidates across
+   length groups and verify with the banded edit-distance kernel;
+4. union-find over the resulting edge list -> components.
 
 Each returned cluster carries its member keys, counts, and local adjacency so
 the dissection strategies never recompute a distance.
@@ -206,6 +208,16 @@ def _host_edit_edges(keys: Sequence[bytes], max_distance: int
     return np.asarray(ii, dtype=np.int64), np.asarray(jj, dtype=np.int64)
 
 
+# Whether the card's edit route ships the key matrix nibble-packed
+# (ops/edit.pack_nibble_rows) when it can: every value at most 14, which
+# holds for dense index matrices (keys with byte 0xFF) and not for raw
+# ASCII keys.  The JAX package packs because its wire was slow.  Here
+# packing loses: on an NVIDIA H100 80GB HBM3 (700 W) packing the 44 MB
+# matrix of 1M reads with indels took 99 ms of host time and saved 3 ms of
+# copy; the per-batch unpack added 1 ms (chip_smoke.py --packed-keys).
+PACK_KEY_MATRIX = False
+
+
 def _edit_on_card(dev) -> bool:
     """Whether edit verification takes the card's route (resident key
     matrix, indexed kernel) on ``dev``: the JAX package's TPU branch."""
@@ -223,6 +235,7 @@ def _edit_edges_entries(entries: Entries, n: int, max_distance: int,
     from .ops.edit import (
         EDIT_VERIFY_BATCH,
         edit_verify_indexed,
+        pack_nibble_rows,
         within_edit_distance_auto,
     )
     from .runtime import big_empty, device, release
@@ -251,10 +264,14 @@ def _edit_edges_entries(entries: Entries, n: int, max_distance: int,
             padded[idx, :length] = matrix
 
     keys_dev = lens_dev = None
+    # (lmax is a multiple of 16, so the packed rows have whole bytes.)
+    keys_packed = on_card and PACK_KEY_MATRIX and \
+        max((int(m.max(initial=0)) for m in matrices), default=0) <= 14
     if on_card:
         # The key matrix goes to the card once, before candidate
         # generation; each verification batch then sends only indices.
-        keys_dev = torch.from_numpy(padded).to(dev)
+        keys_dev = torch.from_numpy(
+            pack_nibble_rows(padded) if keys_packed else padded).to(dev)
         lens_dev = torch.from_numpy(lengths.astype(np.int32)).to(dev)
     # Hash-run ownership shards candidate generation (sort + join) AND
     # the DP verification to ~1/P per host; the union of the per-host
@@ -278,7 +295,8 @@ def _edit_edges_entries(entries: Entries, n: int, max_distance: int,
         for start in range(0, len(cand_i), batch):
             sl = slice(start, start + batch)
             keep[sl] = edit_verify_indexed(keys_dev, lens_dev, cand_i[sl],
-                                           cand_j[sl], max_distance)
+                                           cand_j[sl], max_distance,
+                                           packed=keys_packed)
         del keys_dev, lens_dev
         release(padded)  # refcount-gated no-op if a tensor still holds it
         return cand_i[keep], cand_j[keep]

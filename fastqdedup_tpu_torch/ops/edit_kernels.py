@@ -34,7 +34,7 @@ from typing import Dict
 
 import torch
 
-from .kernel_lib import check_cuda, check_status, library
+from .kernel_lib import check_cuda, check_status, count_launch, library
 
 INF = 1 << 20  # the Pallas kernel's _INF
 
@@ -132,7 +132,7 @@ def _launch(name: str, a: torch.Tensor, len_a: torch.Tensor,
             None if cj is None else cj.data_ptr(), out.data_ptr(), p,
             a.shape[1], min(int(max_distance), 2**31 - 1), stream)
     check_status(name, status)
-    LAUNCHES["banded_within_edit_distance"] += 1
+    count_launch(LAUNCHES, "banded_within_edit_distance")
     return out
 
 

@@ -72,6 +72,15 @@ def unpack_within(packed: torch.Tensor) -> np.ndarray:
     return np.unpackbits(arr, axis=1, bitorder="little").astype(bool)
 
 
+def within_tile_kernel(a: torch.Tensor, b: torch.Tensor, alphabet_size: int,
+                       max_distance: int) -> np.ndarray:
+    """bool [N, M] all-pairs within-distance: the all-pairs kernel's
+    packed tile, unpacked on the host (the unpacked convenience API of
+    the JAX package's ``pallas_hamming.within_tile_kernel``)."""
+    return unpack_within(within_tile_packed(a, b, alphabet_size,
+                                            max_distance))
+
+
 def neighbor_pairs(matrix: np.ndarray, alphabet_size: int, max_distance: int,
                    tile: int = 2048) -> Tuple[np.ndarray, np.ndarray]:
     """All index pairs (i < j) of rows of ``matrix`` within ``max_distance``.

@@ -38,7 +38,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from .kernel_lib import check_cuda, check_status, library
+from .kernel_lib import check_cuda, check_status, count_launch, library
 
 # Rows of the padded pair lists callers hand the rowwise kernel come in
 # multiples of this (the JAX package's block size; the CUDA kernel itself
@@ -152,7 +152,7 @@ def _pairs_within_launch(name: str, a: torch.Tensor, b: torch.Tensor,
             n * l_pad, m * l_pad, int(length), int(max_distance),
             int(alphabet_pad), stream)
     check_status(name, status)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return out
 
 
@@ -241,5 +241,5 @@ def rowwise_within_packed(a: torch.Tensor, b: torch.Tensor,
             a.data_ptr(), b.data_ptr(), out.data_ptr(), p, lanes,
             int(max_distance), stream)
     check_status(name, status)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return out

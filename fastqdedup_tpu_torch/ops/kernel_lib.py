@@ -7,8 +7,14 @@ process, all started together, and one more ``nvcc`` links them.  The
 library is rebuilt when the sha256 over all sources and the headers
 beside them (``csrc/*.cuh``) differs from the stamp beside it; the first
 wrapper call on a CUDA tensor builds it.
+
+The wrappers count their launches through :func:`count_launch`.  A
+thread inside :func:`counting_as_warmup` (the warm-up module's launches)
+counts into ``WARMUP_LAUNCHES`` instead, so a wrapper's own ``LAUNCHES``
+holds the launches of real work only.
 """
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -16,7 +22,8 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import List, Tuple
+import threading
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -26,6 +33,39 @@ _BUILD = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(_BUILD, "libfqd_kernels.so")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _lib = None
+# The prewarm thread and the run's own thread may both reach library().
+_lib_lock = threading.Lock()
+
+# Launches made while warming up, by wrapper name.
+WARMUP_LAUNCHES: Dict[str, int] = {}
+_warmup_count_lock = threading.Lock()
+_counting = threading.local()
+
+
+@contextlib.contextmanager
+def counting_as_warmup():
+    """Within the block, this thread's launches count in
+    ``WARMUP_LAUNCHES`` and not in the wrappers' ``LAUNCHES``."""
+    _counting.warmup = True
+    try:
+        yield
+    finally:
+        _counting.warmup = False
+
+
+def in_warmup() -> bool:
+    """Whether the calling thread is inside :func:`counting_as_warmup`."""
+    return getattr(_counting, "warmup", False)
+
+
+def count_launch(launches: Dict[str, int], name: str) -> None:
+    """Add one launch of ``name``: to ``launches`` (the wrapper module's
+    counter), or to ``WARMUP_LAUNCHES`` inside :func:`counting_as_warmup`."""
+    if in_warmup():
+        with _warmup_count_lock:
+            WARMUP_LAUNCHES[name] = WARMUP_LAUNCHES.get(name, 0) + 1
+    else:
+        launches[name] += 1
 
 
 def sources() -> List[str]:
@@ -107,7 +147,11 @@ def library() -> ctypes.CDLL:
     (pointers and the stream as ``c_void_p``, so none is cut to 32
     bits)."""
     global _lib
-    if _lib is None:
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
         path, _ = build_kernels()
         lib = ctypes.CDLL(path)
         p = ctypes.c_void_p

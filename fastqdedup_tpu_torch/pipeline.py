@@ -1082,17 +1082,28 @@ def deduplicate_cluster(
     In a multi-process job, any failure tears down the host byte
     transport before re-raising so PEER hosts parked in a collective
     fail fast instead of deadlocking against this host's interpreter
-    shutdown.
+    shutdown.  The prewarm thread pass 1 may start (``warmup.py``) is
+    waited for on every way out, so no CUDA call of its is in flight at
+    interpreter exit or when the process group is destroyed.
     """
+    prewarm: List = []
     try:
         _deduplicate_cluster_impl(
             input_files, output_files, check_slices, max_distance,
             max_average_error_rate, cluster_dissection_func,
-            use_edit_distance, chunk_records)
+            use_edit_distance, chunk_records, prewarm)
     except BaseException:
         from .parallel.transport import abort_mesh
         abort_mesh()
         raise
+    finally:
+        # Only reached with a thread still listed when the run failed
+        # before its own join: that failure is the one to report.
+        for thread in prewarm:
+            try:
+                thread.join()
+            except Exception:
+                logger.exception("prewarm thread failed")
 
 
 def _deduplicate_cluster_impl(
@@ -1104,6 +1115,7 @@ def _deduplicate_cluster_impl(
     cluster_dissection_func: ClusterDissectionFunc,
     use_edit_distance: bool,
     chunk_records: int,
+    prewarm: List,
 ) -> None:
     from .runtime import device, tune_host_allocator
     tune_host_allocator()
@@ -1252,6 +1264,7 @@ def _deduplicate_cluster_impl(
     render_futures: List = []
     accumulate_futures = []
     global_base = 0
+    prewarm_started = False
     _p1 = {"iter": 0.0, "cache": 0.0, "keys": 0.0, "submit": 0.0}
     _p1_debug = logger.isEnabledFor(logging.DEBUG)
     if parallel_parts is not None:
@@ -1315,6 +1328,21 @@ def _deduplicate_cluster_impl(
             key_data, key_offsets, qual_data, qual_offsets = _chunk_keys(
                 chunks, check_slices, use_qualities=filter_on_quality)
             _p1["keys"] += _time.perf_counter() - _t
+            if not prewarm_started and max_distance > 0 \
+                    and global_base >= 100_000:
+                # Bring the card up while pass 1 is still parsing: the
+                # CUDA context, the kernel library and each kernel's
+                # first launch (warmup.py).  None on the CPU device.
+                # Small inputs never reach the device (the engine's host
+                # path covers them), so they skip this.
+                prewarm_started = True
+                from .warmup import prewarm_async
+                thread = prewarm_async(
+                    int(key_offsets[1] - key_offsets[0]),
+                    max_distance=max_distance,
+                    use_edit_distance=use_edit_distance)
+                if thread is not None:
+                    prewarm.append(thread)
             b = chunks[0].count
             total_records += b
             _t = _time.perf_counter()
@@ -1460,6 +1488,8 @@ def _deduplicate_cluster_impl(
                          f"{nbytes / (1024 ** 3):.3f} GiB")
         logger.debug(f"Key tables total: {groups.n} unique keys, "
                      f"{total_bytes / (1024 ** 3):.3f} GiB")
+    while prewarm:
+        prewarm.pop().join()  # raises what the thread's work raised
     part = build_partition_groups(groups, max_distance, use_edit_distance,
                                   shard=(pid, nproc),
                                   byte_presence=byte_presence)

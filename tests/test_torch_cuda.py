@@ -398,3 +398,57 @@ def test_edit_contains_within_on_card_launches_kernel(cuda_device,
         assert (launched > 0) == (dev == "cuda")
     assert answers["cuda"] == answers["cpu"]
     assert 0 < sum(answers["cpu"]) < len(queries)
+
+
+@pytest.mark.parametrize("d", [0, 1, 2])
+def test_packed_verify_on_card_equals_unpacked(cuda_device, d):
+    """``edit_verify_indexed(..., packed=True)`` (rows gathered from the
+    nibble-packed key matrix and unpacked by torch ops, then the kernel's
+    paired entry) equals ``packed=False`` (the kernel's indexed entry) on
+    the card, and the plain version."""
+    from fastqdedup_tpu_torch.ops.edit import (
+        edit_verify_indexed,
+        pack_nibble_rows,
+    )
+
+    rng = np.random.default_rng(90 + d)
+    a, la, _, _ = _edit_rows(rng, 5_000, 30, d)
+    keys = a.numpy() % 15
+    keys[np.arange(keys.shape[1])[None, :] >= la.numpy()[:, None]] = 0xFF
+    ci = rng.integers(0, 5_000, 50_000)
+    cj = (ci + rng.integers(0, 3, 50_000)) % 5_000
+    lens = la.to(cuda_device)
+    before = ek.LAUNCHES["banded_within_edit_distance"]
+    got = edit_verify_indexed(
+        torch.from_numpy(pack_nibble_rows(keys)).to(cuda_device), lens, ci,
+        cj, d, packed=True)
+    plain = edit_verify_indexed(torch.from_numpy(keys).to(cuda_device), lens,
+                                ci, cj, d)
+    assert ek.LAUNCHES["banded_within_edit_distance"] == before + 2
+    np.testing.assert_array_equal(got, plain)
+    t_keys = torch.from_numpy(keys)
+    want = ek.banded_within_plain(t_keys[ci], la[ci], t_keys[cj], la[cj], d)
+    np.testing.assert_array_equal(got, want[:, 0].numpy())
+
+
+def test_warmup_on_card_counts_apart(cuda_device, monkeypatch, capsys):
+    """``warmup()`` returns without error on the card, launches every
+    kernel, and counts none of it as real work; ``prewarm_async`` gives
+    a thread once per geometry whose join raises nothing."""
+    from fastqdedup_tpu_torch import warmup
+    from fastqdedup_tpu_torch.ops import kernel_lib
+
+    monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", "cuda")
+    before = {**hk.LAUNCHES, **ek.LAUNCHES}
+    warmup.warmup(lengths=(100,), edit_distances=(1, 2))
+    assert {**hk.LAUNCHES, **ek.LAUNCHES} == before
+    assert set(kernel_lib.WARMUP_LAUNCHES) == set(before)
+    assert "kernel library load" in capsys.readouterr().err
+    monkeypatch.setattr(warmup, "_prewarmed_geometries", set())
+    for edit in (False, True):
+        thread = warmup.prewarm_async(100, 5, 1, edit)
+        thread.join(timeout=120)
+        assert not thread.is_alive()
+        assert set(thread.seconds) == {"context", "library", "launches"}
+        assert warmup.prewarm_async(100, 5, 1, edit) is None
+    assert {**hk.LAUNCHES, **ek.LAUNCHES} == before

@@ -10,6 +10,9 @@ Same numpy inputs (fixed seeds) go through ``fastqdedup_tpu`` and
   to the plain version on);
 * ``batched_edit_distance`` (full-row DP) against the JAX one;
 * ``edit_verify_indexed`` against the JAX ``_edit_verify_gathered``;
+* ``pack_nibble_rows`` and ``edit_verify_indexed(..., packed=True)``
+  against the JAX package's, the unpacked form and the scalar
+  ``distance.within_distance``;
 * ``edit_candidate_pairs`` on each of its branches;
 * ``build_partition`` and ``contains_within`` in edit mode above the
   host limit, on the CPU branch and with the card's branch forced.
@@ -206,12 +209,121 @@ def test_edit_verify_indexed_matches_jax(d):
     assert want[:300].sum() > 100
 
 
-def test_edit_verify_indexed_refuses_bad_indices():
-    keys = torch.zeros((4, 16), dtype=torch.uint8)
+@pytest.mark.parametrize("packed", [False, True])
+def test_edit_verify_indexed_refuses_bad_indices(packed):
+    keys = torch.zeros((4, 8 if packed else 16), dtype=torch.uint8)
     lens = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(IndexError, match="out of range"):
         torch_edit.edit_verify_indexed(keys, lens, np.array([0, 4]),
-                                       np.array([1, 2]), 1)
+                                       np.array([1, 2]), 1, packed=packed)
+
+
+@pytest.mark.parametrize("width", [2, 16, 30, 112])
+def test_pack_nibble_rows_matches_jax(width):
+    """Random index matrices (values 0-14) with 0xFF pads past random
+    lengths: byte for byte the JAX package's packing; 0xFF packs as 15
+    and the even column sits in the high nibble."""
+    rng = np.random.default_rng(width)
+    matrix = rng.integers(0, 15, (257, width), dtype=np.uint8)
+    lengths = rng.integers(0, width + 1, 257)
+    matrix[np.arange(width)[None, :] >= lengths[:, None]] = 0xFF
+    got = torch_edit.pack_nibble_rows(matrix)
+    assert got.dtype == np.uint8 and got.shape == (257, width // 2)
+    np.testing.assert_array_equal(got, jax_edit.pack_nibble_rows(matrix))
+    unpacked = np.stack([got >> 4, got & 0xF], axis=-1).reshape(257, width)
+    np.testing.assert_array_equal(
+        unpacked, np.where(matrix == 0xFF, 15, matrix))
+
+
+@pytest.mark.parametrize("alphabet", [4, 15])
+@pytest.mark.parametrize("d", [0, 1, 2])
+def test_edit_verify_indexed_packed_matches_unpacked_and_jax(d, alphabet):
+    """The nibble-packed key matrix: keys of odd and even real lengths
+    (13-20 symbols, indices up to ``alphabet`` - 1) in a 32-wide matrix
+    with 0xFF pads.  ``packed=True`` equals ``packed=False``, the JAX
+    package's packed and unpacked verifies (its Pallas kernel in
+    interpret mode) and the scalar ``within_distance``."""
+    from fastqdedup_tpu_torch.distance import within_distance
+
+    rng = np.random.default_rng(100 * alphabet + d)
+    n = 300
+    base = rng.integers(0, alphabet, (n, 20), dtype=np.uint8)
+    keys = []
+    for row in base:
+        keys.append(row[:rng.integers(13, 21)])
+        other = keys[-1].copy()
+        for _ in range(rng.integers(0, d + 2)):
+            op = rng.integers(0, 3)
+            pos = rng.integers(0, len(other))
+            if op == 0:
+                other[pos] = rng.integers(0, alphabet)
+            elif op == 1 and len(other) > 13:
+                other = np.delete(other, pos)
+            elif len(other) < 20:
+                other = np.insert(other, pos, rng.integers(0, alphabet))
+        keys.append(other)
+    padded = np.full((2 * n, 32), 0xFF, dtype=np.uint8)
+    lens = np.zeros(2 * n, dtype=np.int32)
+    for i, k in enumerate(keys):
+        padded[i, :len(k)] = k
+        lens[i] = len(k)
+    assert {int(x) % 2 for x in lens} == {0, 1}
+    p = pallas_edit.PAIR_BLOCK
+    ci = rng.integers(0, 2 * n, p).astype(np.int64)
+    cj = rng.integers(0, 2 * n, p).astype(np.int64)
+    ci[:n] = 2 * np.arange(n)
+    cj[:n] = 2 * np.arange(n) + 1
+    packed = torch_edit.pack_nibble_rows(padded)
+    t_lens = torch.from_numpy(lens)
+    got = torch_edit.edit_verify_indexed(
+        torch.from_numpy(packed), t_lens, ci, cj, d, packed=True)
+    plain = torch_edit.edit_verify_indexed(
+        torch.from_numpy(padded), t_lens, ci, cj, d)
+    np.testing.assert_array_equal(got, plain)
+    ci32, cj32 = ci.astype(np.int32), cj.astype(np.int32)
+    np.testing.assert_array_equal(got, np.asarray(
+        jax_edit._edit_verify_gathered_packed(packed, lens, ci32, cj32,
+                                              d))[:, 0])
+    np.testing.assert_array_equal(got, np.asarray(jax_edit.edit_verify_indexed(
+        packed, lens, ci, cj, d, packed=True)))
+    np.testing.assert_array_equal(got, np.asarray(
+        jax_edit._edit_verify_gathered(padded, lens, ci32, cj32, d))[:, 0])
+    strings = [bytes(k + 65).decode("latin-1") for k in keys]
+    scalar = [within_distance(strings[i], strings[j], d, True)
+              for i, j in zip(ci[:2 * n], cj[:2 * n])]
+    np.testing.assert_array_equal(got[:2 * n], scalar)
+    assert 0 < got[:n].sum() < n or d == 0
+
+
+def test_engine_edit_route_packs_when_told(monkeypatch):
+    """``engine.PACK_KEY_MATRIX`` with the card's branch forced on the CPU
+    device: keys holding byte 0xFF take dense index matrices, which pack;
+    the partition equals the unpacked route's and the JAX package's."""
+    import random
+
+    rng = random.Random(8)
+    symbols = b"\x41\x43\x47\x54\xff"
+    keys = set()
+    while len(keys) < 400:
+        base = bytearray(rng.choice(symbols) for _ in range(16))
+        keys.add(bytes(base))
+        del base[rng.randrange(16)]
+        keys.add(bytes(base))
+    keys = sorted(keys)
+    monkeypatch.setattr(torch_engine, "_edit_on_card", lambda dev: True)
+    packs = []
+    inner = torch_edit.pack_nibble_rows
+    monkeypatch.setattr(torch_edit, "pack_nibble_rows",
+                        lambda m: packs.append(m.shape) or inner(m))
+    parts = {}
+    for flag in (False, True):
+        monkeypatch.setattr(torch_engine, "PACK_KEY_MATRIX", flag)
+        part = torch_engine.build_partition(keys, 1, use_edit_distance=True)
+        parts[flag] = (part.order.tolist(), part.starts.tolist())
+    assert packs == [(len(keys), 16)]
+    assert parts[True] == parts[False]
+    want = jax_engine.build_partition(keys, 1, use_edit_distance=True)
+    assert parts[True] == (want.order.tolist(), want.starts.tolist())
 
 
 def _edit_groups(seed, n_mol=120, copies=4):

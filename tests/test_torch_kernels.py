@@ -128,6 +128,13 @@ def test_within_tile_plain_matches_pallas(n, m, length, alphabet, d):
                                 alphabet, d).numpy()
     assert got.shape == (n, m // 8)
     np.testing.assert_array_equal(got, want)
+    # The unpacked convenience form, against the JAX package's.
+    from fastqdedup_tpu_torch.ops.hamming import within_tile_kernel
+    unpacked = within_tile_kernel(torch.from_numpy(a), torch.from_numpy(b),
+                                  alphabet, d)
+    assert unpacked.shape == (n, m) and unpacked.dtype == np.bool_
+    np.testing.assert_array_equal(
+        unpacked, pallas.within_tile_kernel(a, b, alphabet, d))
 
 
 @pytest.mark.parametrize("length,d", [(24, 1), (7, 2), (40, 0), (100, 1)])
@@ -211,3 +218,41 @@ def test_wrapper_refuses_non_cuda_device():
     r = torch.empty((8, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         hk.rowwise_within_packed(r, r, 1)
+
+
+def test_smoke_generator_keeps_the_bench_input(tmp_path):
+    """``chip_smoke.generate_fastq`` with its options at their defaults
+    writes ``bench.generate_fastq``'s bytes (the pinned sha256 values
+    rest on that), also when it writes the mate and UMI files in the same
+    pass; those two hold one record per read under the same names, and
+    ``lowq_rate`` redraws whole reads' qualities in Q2-Q10."""
+    import gzip
+
+    import bench
+    import chip_smoke
+
+    def read(name):
+        with gzip.open(tmp_path / name, "rb") as f:
+            return f.read()
+
+    n = 300_000  # more than one block of 250,000, so the streams run on
+    bench.generate_fastq(str(tmp_path / "bench.gz"), n, 100, 12)
+    chip_smoke.generate_fastq(
+        str(tmp_path / "smoke.gz"), n, 100, 12,
+        mate_path=str(tmp_path / "mate.gz"),
+        umi_path=str(tmp_path / "umi.gz"))
+    want = read("bench.gz")
+    assert read("smoke.gz") == want
+    names = want.split(b"\n")[0::4][:-1]
+    for other, width in (("mate.gz", 100), ("umi.gz", 12)):
+        lines = read(other).split(b"\n")
+        assert lines[0::4][:-1] == names
+        assert {len(seq) for seq in lines[1::4]} == {width}
+        assert set(b"".join(lines[1::4][:1000])) <= set(b"ACGT")
+    chip_smoke.generate_fastq(str(tmp_path / "lowq.gz"), 20_000, 100, 12,
+                              lowq_rate=0.05)
+    quals = read("lowq.gz").split(b"\n")[3::4]
+    low = [q for q in quals if max(q) <= 33 + 10]
+    assert 0.03 < len(low) / len(quals) < 0.07
+    assert all(min(q) >= 33 + 2 for q in low)
+    assert all(min(q) >= 33 + 30 for q in quals if max(q) > 33 + 10)

@@ -290,3 +290,151 @@ def test_device_from_environment(monkeypatch):
     else:
         with pytest.raises(RuntimeError, match="cuda.is_available"):
             runtime.device()
+
+
+# --------------------------------------------------------------------- #
+# Engine contracts that tests/test_engine.py pins on the JAX package
+
+
+def _cluster_sets(clusters):
+    return {frozenset(c.keys) for c in clusters}
+
+
+def test_build_clusters_tolerates_0xff_key_bytes():
+    """Byte 0xFF collides with the padding sentinel: both engines fall
+    back to dense index matrices, give the same clusters, and every pair
+    within Hamming 1 shares one."""
+    import random
+
+    rng = random.Random(3)
+    base = bytes(rng.choice(b"\x41\x43\x47\x54\xff") for _ in range(12))
+    keys = {base}
+    while len(keys) < 80:
+        k = bytearray(base)
+        for _ in range(rng.randrange(1, 4)):
+            k[rng.randrange(12)] = rng.choice(b"\x41\x43\x47\x54\xff")
+        keys.add(bytes(k))
+    keys = sorted(keys)
+    got = torch_engine.build_clusters(keys, [1] * len(keys), max_distance=1)
+    want = jax_engine.build_clusters(keys, [1] * len(keys), max_distance=1)
+    assert _cluster_sets(got) == _cluster_sets(want)
+    member_of = {k: c for c in _cluster_sets(got) for k in c}
+    for i, a in enumerate(keys):
+        for b in keys[i + 1:]:
+            if sum(x != y for x, y in zip(a, b)) <= 1:
+                assert member_of[a] is member_of[b], (a, b)
+
+
+def test_hamming_pair_code_limit():
+    """The i*n+j int64 packing refuses key counts that would wrap, in
+    both packages with the same message."""
+    messages = []
+    for bucket in (jax_bucket, torch_bucket):
+        fake = bucket._HAMMING_PAIR_CODE_LIMIT
+
+        class Huge(np.ndarray):
+            @property
+            def shape(self, _fake=fake):
+                return (_fake + 1, 8)
+
+        huge = np.zeros((4, 8), dtype=np.uint8).view(Huge)
+        with pytest.raises(OverflowError,
+                           match="equal-length unique keys") as info:
+            bucket.hamming_neighbor_pairs_bucketed(huge, 5, 1)
+        messages.append(str(info.value))
+    assert messages[0] == messages[1]
+
+
+def test_edit_pair_code_limit():
+    """Edit-mode i*2^31+j packing refuses global indices >= 2^31."""
+    messages = []
+    for bucket in (jax_bucket, torch_bucket):
+        matrix = np.zeros((2, 8), dtype=np.uint8)
+        gidx = np.asarray([0, bucket._PAIR_BASE + 5], dtype=np.int64)
+        with pytest.raises(OverflowError,
+                           match="edit-mode pair encoding") as info:
+            bucket.edit_candidate_pairs([matrix], [gidx], 1)
+        messages.append(str(info.value))
+    assert messages[0] == messages[1]
+
+
+def test_host_device_crossover_moves_with_dispatch_cost(monkeypatch):
+    """The host-bucket cap follows the measured rates: a costly dispatch
+    keeps 60-member buckets on the host, a free one sends them to the
+    device; both packages choose the same caps."""
+    sizes = np.full(100, 60, dtype=np.int64)
+    monkeypatch.setenv("FASTQDEDUP_HOST_RATE", "2e9")
+    monkeypatch.setenv("FASTQDEDUP_H2D_RATE", "1e9")
+    caps = {}
+    for label, dispatch in (("slow", "0.5"), ("fast", "0.0000001")):
+        monkeypatch.setenv("FASTQDEDUP_DISPATCH_S", dispatch)
+        caps[label] = torch_bucket.choose_host_bucket_cap(sizes, 100, 2048)
+        assert caps[label] == jax_bucket.choose_host_bucket_cap(
+            sizes, 100, 2048)
+    assert caps["slow"] >= 60 > caps["fast"]
+
+
+@pytest.mark.parametrize("path", ["classes", "oversized"])
+def test_bucketed_exact_under_hash_collisions(monkeypatch, path):
+    """Bucket hashes may collide: different segment contents landing in
+    one bucket must not give false pairs (the per-pair segment re-check
+    prunes them).  A 4-valued hash in both packages; the pairs equal the
+    JAX package's and brute force."""
+    import random
+
+    def weak_hash(window, salt, strong=True):
+        return window.astype(np.uint64).sum(axis=1) % np.uint64(4)
+
+    for bucket in (jax_bucket, torch_bucket):
+        monkeypatch.setattr(bucket, "_hash_window_rows", weak_hash)
+    monkeypatch.setenv("FASTQDEDUP_DISPATCH_S", "1e-9")
+    rng = random.Random(11)
+    keys = list(dict.fromkeys(
+        "".join(rng.choice("ACGT") for _ in range(10)).encode()
+        for _ in range(400)))
+    matrix = np.frombuffer(b"".join(keys), dtype=np.uint8).reshape(-1, 10)
+    matrix = EncodeTable("ACGTN").encode(matrix)
+    threshold = 2048 if path == "classes" else 8
+    got = set(zip(*(x.tolist() for x in
+                    torch_bucket.hamming_neighbor_pairs_bucketed(
+                        matrix, 5, 1, large_bucket_threshold=threshold))))
+    want = set(zip(*(x.tolist() for x in
+                     jax_bucket.hamming_neighbor_pairs_bucketed(
+                         matrix, 5, 1, large_bucket_threshold=threshold))))
+    distance = (matrix[:, None, :] != matrix[None, :, :]).sum(axis=2)
+    brute = {(i, j) for i, j in zip(*np.nonzero(distance <= 1)) if i < j}
+    assert got == want == brute
+
+
+def test_edit_candidate_completeness_brute_force():
+    """Every true Levenshtein <= 1 pair (substitutions, insertions,
+    deletions, across lengths) is among the port's candidates, which are
+    the JAX package's."""
+    from fastqdedup_tpu_torch.distance import within_distance
+
+    rng = np.random.default_rng(5)
+    keys = []
+    for length in (12, 13):
+        for _ in range(40):
+            m = rng.integers(0, 4, size=length, dtype=np.uint8)
+            v = m.copy()
+            v[rng.integers(0, len(v))] = rng.integers(0, 4)
+            keys += [m, v, np.delete(m, rng.integers(0, len(m))),
+                     np.insert(m, rng.integers(0, len(m) + 1),
+                               rng.integers(0, 4))]
+    uniq = list({bytes(k): k for k in keys}.values())
+    by_len = {}
+    for i, k in enumerate(uniq):
+        by_len.setdefault(len(k), []).append(i)
+    mats = [np.stack([uniq[i] for i in idxs]).astype(np.uint8)
+            for idxs in by_len.values()]
+    gidx = [np.asarray(idxs, dtype=np.int64) for idxs in by_len.values()]
+    ci, cj = torch_bucket.edit_candidate_pairs(mats, gidx, 1)
+    wi, wj = jax_bucket.edit_candidate_pairs(mats, gidx, 1)
+    cand = set(zip(ci.tolist(), cj.tolist()))
+    assert cand == set(zip(wi.tolist(), wj.tolist()))
+    strs = [bytes(k + 65).decode("latin-1") for k in uniq]
+    for i in range(len(uniq)):
+        for j in range(i + 1, len(uniq)):
+            if within_distance(strs[i], strs[j], 1, True):
+                assert (i, j) in cand, (strs[i], strs[j])

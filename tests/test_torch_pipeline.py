@@ -34,8 +34,15 @@ def _cpu_device(monkeypatch):
 def _write_fastq(path, records):
     data = "".join(f"@{name}\n{seq}\n+\n{qual}\n"
                    for name, seq, qual in records)
-    with gzip.open(path, "wb") as f:
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "wb") as f:
         f.write(data.encode())
+
+
+def _read_out(path):
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "rb") as f:
+        return f.read()
 
 
 def _reads(rng, n, length, dup_rate=0.6, error_rate=0.02, suffix=""):
@@ -80,21 +87,26 @@ def _indel_reads(rng, n, length, suffix=""):
 
 
 def _run_both(tmp_path, inputs, check_slices=None, max_distance=1,
-              method="directional", edit=False):
+              method="directional", edit=False, max_average_error_rate=0.001,
+              suffix=".fastq.gz", chunk_records=53):
+    """Both packages on the same files; ``method`` is a name or a
+    dissection function.  Outputs must be byte-identical and not empty."""
     paths = []
     for idx, records in enumerate(inputs):
-        path = str(tmp_path / f"in{idx}.fastq.gz")
+        path = str(tmp_path / f"in{idx}{suffix}")
         _write_fastq(path, records)
         paths.append(path)
+    func = CLUSTER_DISSECTION_METHODS[method] \
+        if isinstance(method, str) else method
     outs = {}
     for tag, dedup in (("jax", jax_dedup), ("torch", torch_dedup)):
-        outs[tag] = [str(tmp_path / f"{tag}{i}.fastq.gz")
+        outs[tag] = [str(tmp_path / f"{tag}{i}{suffix}")
                      for i in range(len(paths))]
-        dedup(paths, outs[tag], check_slices, max_distance, 0.001,
-              CLUSTER_DISSECTION_METHODS[method], edit, chunk_records=53)
+        dedup(paths, outs[tag], check_slices, max_distance,
+              max_average_error_rate, func, edit,
+              chunk_records=chunk_records)
     for want, got in zip(outs["jax"], outs["torch"]):
-        with gzip.open(want, "rb") as fw, gzip.open(got, "rb") as fg:
-            want_bytes, got_bytes = fw.read(), fg.read()
+        want_bytes, got_bytes = _read_out(want), _read_out(got)
         assert got_bytes == want_bytes
         assert got_bytes
     return outs
@@ -204,7 +216,7 @@ def test_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):
         torch_dedup([src], [str(tmp_path / "out.fastq.gz")], None)
 
 
-def test_device_quality_filter_not_ported(tmp_path, monkeypatch):
+def test_device_quality_filter_byte_identical(tmp_path, monkeypatch):
     """FASTQDEDUP_DEVICE_QUALITY=1 (the float32 device filter, ported as
     ops/phred.py): both packages write the same bytes under it.  Every
     seventh read is all Q30, whose float32 mean sits on the 0.001
@@ -214,3 +226,117 @@ def test_device_quality_filter_not_ported(tmp_path, monkeypatch):
              for i, (name, seq, qual) in enumerate(reads)]
     monkeypatch.setenv("FASTQDEDUP_DEVICE_QUALITY", "1")
     _run_both(tmp_path, [reads])
+
+
+def test_three_files_umi_adjacency_d2(tmp_path):
+    """Two read files and a UMI file, adjacency, d=2, check lengths
+    8,8,8 (tests/test_pipeline.py's three-file case)."""
+    rng = random.Random(45)
+    r1 = _reads(rng, 150, 20)
+    r2 = [(name, "".join(rng.choice("ACGT") for _ in range(20)), qual)
+          for name, _, qual in r1]
+    umi = [(name, "".join(rng.choice("ACGT") for _ in range(8)), "I" * 8)
+           for name, _, _ in r1]
+    _run_both(tmp_path, [r1, r2, umi],
+              check_slices=length_string_to_slices("8,8,8"),
+              max_distance=2, method="adjacency")
+
+
+def test_distance_zero_exact_dedup(tmp_path):
+    _run_both(tmp_path, [_reads(random.Random(47), 150, 10, error_rate=0.0)],
+              max_distance=0)
+
+
+def test_uncompressed_output(tmp_path):
+    """Plain ``.fastq`` in and out."""
+    outs = _run_both(tmp_path, [_reads(random.Random(48), 80, 12)],
+                     suffix=".fastq", chunk_records=16)
+    with open(outs["torch"][0], "rb") as f:
+        assert f.read(1) == b"@"
+
+
+def test_arity_validation():
+    for dedup in (jax_dedup, torch_dedup):
+        with pytest.raises(ValueError, match="Amount of output files"):
+            dedup(["a.fastq"], [], None)
+        with pytest.raises(ValueError, match="Amount of check lengths"):
+            dedup(["a.fastq"], ["b.fastq"], [slice(8), slice(8)])
+
+
+def test_memory_budget_fallback_restreams(tmp_path, monkeypatch):
+    """With a 1-byte in-RAM budget the chunk cache drops at once and the
+    record arena is abandoned after its first part, so pass 3 re-streams
+    the input from disk: the same bytes, and the JAX package's."""
+    records = [(f"r{i} x", "ACGTACGTACGT" if i % 2 else "ACGTACGTACGA",
+                "I" * 12) for i in range(50)]
+    cached = _run_both(tmp_path, [records], max_average_error_rate=1.0)
+    monkeypatch.setenv("FASTQDEDUP_MEMORY_LIMIT", "1")
+    (tmp_path / "streamed").mkdir()
+    streamed = _run_both(tmp_path / "streamed", [records],
+                         max_average_error_rate=1.0)
+    assert _read_out(cached["torch"][0]) == _read_out(streamed["torch"][0])
+
+
+def test_record_arena_paths_byte_identical(tmp_path, monkeypatch):
+    """All three pass-3 strategies of the port write the JAX package's
+    bytes: record arena (default), chunk cache (arena off), re-stream (no
+    cache).  Paired files with Illumina comment headers."""
+    reads = _reads(random.Random(17), 400, 24)
+    inputs = [[(f"{n} 1:x", s, q) for n, s, q in reads],
+              [(f"{n} 2:x", s[::-1], q) for n, s, q in reads]]
+    runs = []
+    for tag, env in (("arena", {}),
+                     ("cached", {"FASTQDEDUP_RECORD_ARENA": "0"}),
+                     ("streamed", {"FASTQDEDUP_RECORD_ARENA": "0",
+                                   "FASTQDEDUP_MEMORY_LIMIT": "1"})):
+        for key, value in env.items():
+            monkeypatch.setenv(key, value)
+        (tmp_path / tag).mkdir()
+        outs = _run_both(tmp_path / tag, inputs)
+        runs.append([_read_out(o) for o in outs["torch"]])
+    assert runs[0] == runs[1] == runs[2]
+
+
+def test_custom_dissection_with_unknown_keys(tmp_path):
+    """A user-supplied dissection strategy may yield strings that are not
+    cluster keys; they are ignored in both packages, neither crashing nor
+    marking a neighbouring real key."""
+
+    def weird_strategy(cluster, max_distance, use_edit_distance):
+        yield "ZZZZZZZZZZZZZZZZZZZZ"   # unknown, sorts past every key
+        yield "AAAAAAAAAAAAAAAAAAAA"   # unknown, insertion point 0
+        yield "NOT_A_KEY_LENGTH"       # unknown length entirely
+        yield max(cluster)[1]          # one real representative
+
+    _run_both(tmp_path, [_reads(random.Random(47), 120, 20)],
+              method=weird_strategy, max_average_error_rate=1.0)
+
+
+def test_numpy_fallback_accumulator_and_renderer(tmp_path, monkeypatch):
+    """Without the native library the port's pure-numpy accumulator and
+    renderer write the bytes of its native path and of the JAX package."""
+    import fastqdedup_tpu_torch.pipeline as pl
+
+    reads = _reads(random.Random(49), 300, 20)
+    native = _run_both(tmp_path, [reads])
+    monkeypatch.setattr(pl, "_make_key_accumulator",
+                        lambda expected=0: pl._NumpyKeyAccumulator(expected))
+    monkeypatch.delattr(
+        "fastqdedup_tpu_torch.native.loader.render_records_native")
+    # Also force pass 3's searchsorted membership path (no C hash lookup).
+    monkeypatch.delattr("fastqdedup_tpu_torch.native.loader.KeyAccumulator")
+    fallback = str(tmp_path / "fallback.fastq.gz")
+    torch_dedup([str(tmp_path / "in0.fastq.gz")], [fallback], None,
+                chunk_records=53)
+    assert _read_out(fallback) == _read_out(native["torch"][0])
+
+
+def test_edit_two_member_mixed_length_count_tie(tmp_path):
+    """Edit mode: a two-member cluster whose keys differ in length and
+    tie on count breaks the tie on string order (AAAAAAAA and AAAAAAA,
+    Levenshtein 1, one read each)."""
+    reads = [("r0 x", "AAAAAAAA", "IIIIIIII"),
+             ("r1 x", "AAAAAAA", "IIIIIII"),
+             ("r2 x", "CCCCCCCC", "IIIIIIII")]
+    _run_both(tmp_path, [reads], edit=True, max_average_error_rate=1.0,
+              chunk_records=2)

@@ -42,12 +42,14 @@ def free_port() -> int:
 
 
 def run_two_processes(tmp_path, body: str, env=None,
-                      timeout: float = 240.0) -> None:
+                      timeout: float = 240.0, check: bool = True):
     """Run ``body`` (Python source that may use ``pid``) in two processes
     of one torch.distributed job on the CPU device.  ``env`` adds to the
     children's environment; ``FASTQDEDUP_TCP_TRANSPORT=0`` there means
     the gloo collective path, and the epilogue then asserts that no
-    socket mesh was built."""
+    socket mesh was built.  Returns ``[(exit code, output), ...]`` by
+    process; with ``check`` both must have exited 0.  A child still
+    running at the timeout is killed and the call raises."""
     child_env = dict(os.environ)
     child_env.pop("XLA_FLAGS", None)
     child_env.update({"PYTHONPATH": REPO, "FASTQDEDUP_TORCH_DEVICE": "cpu",
@@ -74,6 +76,9 @@ def run_two_processes(tmp_path, body: str, env=None,
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    for proc, log in zip(procs, logs):
-        assert proc.returncode == 0, \
-            log.read_text(errors="replace")[-3000:]
+    results = [(proc.returncode, log.read_text(errors="replace"))
+               for proc, log in zip(procs, logs)]
+    if check:
+        for code, text in results:
+            assert code == 0, text[-3000:]
+    return results
