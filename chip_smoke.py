@@ -30,6 +30,14 @@ Phases, each printing one JSON line to stdout:
    and the kernel's bound on this card: the bytes and operations counted
    from the shapes (``kernel_bound``), the larger of their two times, and
    the share of it the kernel reached;
+   ``verify`` — every kernel against host oracles that share no code with
+   the port's plain versions (numpy all-pairs comparisons, the scalar
+   ``distance.within_distance``) at the 19 geometries of
+   ``bench_kernels_torch.verify_kernels`` (the same function as
+   ``python3 bench_kernels_torch.py --verify``): tiles at L=151 d=3 (Lp
+   160) and at alphabet 12, buckets of every size class at L=100 d=1 and
+   L=151 d=2, pair lists of 13, 5 and 19 lanes, the edit kernel at 24 bp
+   and on 100 bp pairs with indels at d = 1 to 3;
 4. ``warmup`` — ``fastqdedup_tpu_torch.warmup.warmup()`` once, its steps
    printed; its launches must count apart from real work;
 5. ``pipeline`` — ``deduplicate_cluster`` with its defaults (Hamming d=1,
@@ -79,7 +87,8 @@ Phases, each printing one JSON line to stdout:
     the card and on the CPU device must write the same bytes.
 
 Then one ``{"kernels": [...]}`` line (launch counts of phases 5-7 and 9,
-times, bounds and errors of phase 3), the ``nvidia-smi`` name/power-limit line,
+times, bounds and errors of phase 3, the ``verify`` phase's geometries a
+kernel as ``oracle_geometries``), the ``nvidia-smi`` name/power-limit line,
 and the result line ``{"ok": true, "device": {...}}`` last.  Any failed
 check, or a child process that fails, exits non-zero before the result
 line.  Without CUDA, or without the package beside this script, it exits
@@ -118,7 +127,13 @@ files, check slices, ``max_distance`` and dissection function (and
 outputs, concatenated in the order of the files.  The default input has
 no indels, so its ``--edit`` output equals its Hamming output; the indel
 input's does not.  The ``configs`` runs took 2 to 46 s each that way, so
-none of them was cut below 1M reads.
+none of them was cut below 1M reads.  ``default-10m`` and ``edit-10m``
+are the same for 10M reads of the default profile (``generate_fastq(path,
+10_000_000, 100, 12)``, seed 7), Hamming and ``use_edit_distance=True``:
+11.8 s and 119.6 s that way on an 8-core CPU host; the two are equal,
+as the profile has no indels.  No phase of the smoke runs
+them: ``tools/hunt100m_torch.py`` and ``bench_torch.py`` at
+``BENCH_READS=10000000`` check against them.
 """
 
 import contextlib
@@ -168,6 +183,11 @@ EXPECTED_SHA256 = {
         "914ae3f3e7e1293ee3ce4a5b67c8feb77b858885e79f78f253117eeda1000fff",
     "indel-d2":
         "5964556b0ddb5f122ca983f6e5da1c1bd5bae5c635d9ae35264a6408fdd976f5",
+    # 10M reads of the default profile; no smoke phase runs these.
+    "default-10m":
+        "227a073bb572276eff16bd15feeec60ec0164d68db4e894b04cd190955d66a73",
+    "edit-10m":
+        "227a073bb572276eff16bd15feeec60ec0164d68db4e894b04cd190955d66a73",
 }
 
 # Generated files: the keyword arguments of ``generate_fastq`` beside the
@@ -289,6 +309,40 @@ def kernel_bound(cost: dict) -> dict:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> list:
+    """Each card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+
+
+def run_device_or_exit(script: str) -> torch.device:
+    """The device a measurement script runs on: the card, or the CPU
+    device where ``FASTQDEDUP_TORCH_DEVICE=cpu`` asks for it (the tests
+    do).  Without a card, and not asked for the CPU, it exits 2: no
+    measurement falls back to the CPU."""
+    want = torch.device(os.environ.get("FASTQDEDUP_TORCH_DEVICE", "cuda"))
+    if want.type == "cuda" and not torch.cuda.is_available():
+        print(f"{script}: torch.cuda.is_available() is False; it measures "
+              f"an NVIDIA GPU (FASTQDEDUP_TORCH_DEVICE=cpu runs it on the "
+              f"CPU device)", file=sys.stderr)
+        sys.exit(2)
+    from fastqdedup_tpu_torch.runtime import device
+
+    return device()
+
+
+def describe_device(dev: torch.device) -> dict:
+    """What a result line says of the device it was measured on."""
+    if dev.type != "cuda":
+        return {"platform": "cpu", "kind": "cpu", "count": 1}
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(dev),
+            "count": torch.cuda.device_count(),
+            "name_power_limit": nvidia_smi()}
 
 
 def fail(message: str) -> None:
@@ -941,6 +995,21 @@ def check_kernels(dev) -> dict:
                f"one: P={p} d={d}", torch.from_numpy(got),
                torch.from_numpy(want), None, None, False)
     return summary
+
+
+def check_against_oracles(dev) -> dict:
+    """The ``verify`` phase: ``bench_kernels_torch.verify_kernels`` on
+    the card; returns the geometries checked, by kernel."""
+    from bench_kernels_torch import KernelMismatch, verify_kernels
+
+    t0 = time.perf_counter()
+    try:
+        counts = verify_kernels(dev)
+    except KernelMismatch as error:
+        fail(f"verify: {error}")
+    emit({"phase": "verify", "seconds": time.perf_counter() - t0,
+          "geometries": sum(counts.values()), "by_kernel": counts})
+    return counts
 
 
 def check_warmup() -> None:
@@ -1963,10 +2032,7 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
+    smi = nvidia_smi()
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
@@ -1990,6 +2056,7 @@ def main(argv) -> int:
     summary = check_kernels(dev)
     if argv == ["--kernels"]:
         return 0
+    oracle_geometries = check_against_oracles(dev)
 
     os.environ["FASTQDEDUP_TORCH_DEVICE"] = "cuda"
     check_warmup()
@@ -2080,6 +2147,7 @@ def main(argv) -> int:
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": sum(by_path[name].values()),
          "launches_by_path": by_path[name],
+         "oracle_geometries": oracle_geometries[name],
          **summary[name]}
         for name, (source, replaces) in KERNELS.items()]})
     for line in smi:

@@ -364,3 +364,36 @@ pipeline.deduplicate_cluster(
         want = gzip.open(s_out, "rb").read()
         assert gzip.open(d_out, "rb").read() == want
         assert want
+
+
+def test_two_process_run_moves_off_a_taken_port(tmp_path, monkeypatch):
+    """A port that another process binds between ``free_port`` and the
+    store's own bind: the first child fails with EADDRINUSE, the run is
+    ended at once (its peer does not wait out the store's timeout) and
+    started again on a new port."""
+    import socket
+    import time
+
+    import torch_two_process
+
+    taken = socket.socket()
+    taken.bind(("127.0.0.1", 0))
+    taken.listen(1)
+    ports = [taken.getsockname()[1]]
+    real = torch_two_process.free_port
+    given = []
+
+    def next_port():
+        given.append(ports.pop(0) if ports else real())
+        return given[-1]
+
+    monkeypatch.setattr(torch_two_process, "free_port", next_port)
+    t0 = time.monotonic()
+    try:
+        results = run_two_processes(tmp_path, 'print("RAN", pid)\n')
+    finally:
+        taken.close()
+    assert len(given) == 2 and given[0] != given[1]
+    assert [("RAN 0" in text, "RAN 1" in text)
+            for _, text in results] == [(True, False), (False, True)]
+    assert time.monotonic() - t0 < 120.0

@@ -4,8 +4,9 @@ Both trees are read with ``ast`` (nothing is imported): every public
 top-level function and class of every module of ``fastqdedup_tpu`` must
 have a same-named counterpart in the same-named module of
 ``fastqdedup_tpu_torch``, or in the module ``MOVED`` names, or stand in
-``NOT_PORTED`` with its reason.  No file of the port, and not
-``chip_smoke.py``, may import ``jax`` or the JAX package.
+``NOT_PORTED`` with its reason.  No file of the port, and none of its
+scripts (``chip_smoke.py`` and the measurement tools), may import
+``jax`` or the JAX package.
 """
 
 import ast
@@ -137,13 +138,25 @@ def _imported_roots(tree):
     return roots
 
 
+# The port's scripts beside the package: the smoke run and the
+# measurement tools.
+PORT_SCRIPTS = ("chip_smoke.py", "bench_torch.py", "bench_kernels_torch.py",
+                "bench_scaling_torch.py", "tools/hunt100m_torch.py",
+                "tools/scale_profile_torch.py",
+                "tools/device_majority_torch.py")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
-    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
-        trees = {"chip_smoke.py": ast.parse(f.read())}
+    trees = {}
+    for script in PORT_SCRIPTS:
+        with open(os.path.join(REPO, script), encoding="utf-8") as f:
+            trees[script] = ast.parse(f.read())
     trees.update({os.path.join("fastqdedup_tpu_torch", module): tree
                   for module, tree in PORT_MODULES.items()})
+    # bench*.py import the JAX package (bench.generate_fastq inside).
     bad = {path: sorted(_imported_roots(tree)
-                        & {"jax", "jaxlib", "fastqdedup_tpu"})
+                        & {"jax", "jaxlib", "fastqdedup_tpu", "bench",
+                           "bench_kernels", "bench_scaling"})
            for path, tree in trees.items()}
     assert not {path: roots for path, roots in bad.items() if roots}
 

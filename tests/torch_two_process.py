@@ -7,6 +7,11 @@ pass on the port's own code.  They rendezvous through
 process group really has two members, run the caller's body, and check
 whether the TCP socket mesh came up.  A run that outlives its timeout
 kills both children and fails.
+
+The port is found free here and bound later by the first child, so
+another process (a test on another worker) may take it in between; a
+run whose children report the port taken (``EADDRINUSE``) is started
+again on a new port, at most ``PORT_ATTEMPTS`` times in all.
 """
 
 import os
@@ -35,10 +40,19 @@ assert mesh_up == {want_mesh!r}, ("TCP mesh up", mesh_up)
 """
 
 
+PORT_ATTEMPTS = 3
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def port_was_taken(output: str) -> bool:
+    """Whether a child failed because its port was bound by another
+    process first (TCPStore's and the socket layer's words for it)."""
+    return "EADDRINUSE" in output or "ddress already in use" in output
 
 
 def run_two_processes(tmp_path, body: str, env=None,
@@ -56,8 +70,24 @@ def run_two_processes(tmp_path, body: str, env=None,
                       "OMP_NUM_THREADS": "1"})
     child_env.update(env or {})
     want_mesh = child_env.get("FASTQDEDUP_TCP_TRANSPORT") != "0"
-    driver = tmp_path / "driver.py"
-    driver.write_text(_PRELUDE.format(port=free_port())
+    for _ in range(PORT_ATTEMPTS):
+        results = _run_once(tmp_path, body, child_env, want_mesh, timeout)
+        if all(code == 0 for code, _ in results) or not any(
+                port_was_taken(text) for _, text in results):
+            break
+    if check:
+        for code, text in results:
+            assert code == 0, text[-3000:]
+    return results
+
+
+def _run_once(tmp_path, body: str, child_env: dict, want_mesh: bool,
+              timeout: float):
+    """One run on a new port.  A child that fails because the port was
+    taken ends the run at once: its peer would wait out the store's
+    timeout."""
+    child = tmp_path / "child.py"
+    child.write_text(_PRELUDE.format(port=free_port())
                       + textwrap.dedent(body)
                       + _EPILOGUE.format(want_mesh=want_mesh))
     logs = [tmp_path / f"child{p}.log" for p in range(2)]
@@ -66,19 +96,21 @@ def run_two_processes(tmp_path, body: str, env=None,
         for p in range(2):
             with open(logs[p], "wb") as log:
                 procs.append(subprocess.Popen(
-                    [sys.executable, str(driver), str(p)], env=child_env,
+                    [sys.executable, str(child), str(p)], env=child_env,
                     stdout=log, stderr=subprocess.STDOUT, cwd=tmp_path))
         deadline = time.monotonic() + timeout
-        for proc in procs:
-            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        while any(proc.poll() is None for proc in procs):
+            if time.monotonic() > deadline:
+                raise subprocess.TimeoutExpired(str(child), timeout)
+            if any(proc.returncode not in (None, 0) and port_was_taken(
+                    log.read_text(errors="replace"))
+                   for proc, log in zip(procs, logs)):
+                break
+            time.sleep(0.1)
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    results = [(proc.returncode, log.read_text(errors="replace"))
-               for proc, log in zip(procs, logs)]
-    if check:
-        for code, text in results:
-            assert code == 0, text[-3000:]
-    return results
+    return [(proc.returncode, log.read_text(errors="replace"))
+            for proc, log in zip(procs, logs)]
