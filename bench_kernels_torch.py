@@ -21,7 +21,14 @@ peaks are an H100's (``chip_smoke.H100_BYTES_PER_S``,
 ``H100_OPS_PER_S``) and the bound is
 ``chip_smoke.kernel_bound`` of the bytes and operations counted from the
 shapes; ``pct_speed_of_light`` is the bound's share of ``wall_s`` (the
-share of the peak of whichever resource bounds the kernel).
+share of the peak of whichever resource bounds the kernel).  The
+pair-list kernel is timed through both entries (paired rows, and the
+pair-list route's int32 index pairs into a resident matrix).  Then, at
+the shapes of ``PERF.md``'s kernel table, one line each for the library
+call beside the all-pairs kernel (``chip_smoke.onehot_product``: the JAX
+package's one-hot product, ``torch.bmm`` in fp16 for buckets and
+``torch._int_mm`` in int8 for the tile, match counts only) and for the
+kernel on the same rows, ``wall_s`` and ``wall_s_cold`` as above.
 
 ``--verify`` runs the JAX package's sweep (``bench_kernels.py
 --verify``: 5 tile, 6 bucket, 3 pair-list and 2 edit geometries) and
@@ -321,6 +328,18 @@ def time_kernels(dev: torch.device) -> None:
         f"rowwise_within_packed P={p} lanes={lanes}",
         lambda: hk.rowwise_within_packed(pa, pb, 1),
         chip_smoke.rowwise_cost(p, lanes), p, flush))
+    # The pair-list route's launch: the same pairs as int32 index pairs
+    # into one resident matrix of their 2 * 2^17 rows.
+    packed = torch.cat([pa, pb])
+    gi = torch.arange(p, dtype=torch.int32, device=dev)
+    gj = gi + p
+    chip_smoke.emit(kernel_line(
+        f"rowwise_within_packed_indexed P={p} lanes={lanes} into "
+        f"n={2 * p} rows",
+        lambda: hk.rowwise_within_packed_indexed(packed, gi, gj, 1),
+        chip_smoke.rowwise_cost(p, lanes, chip_smoke.distinct_rows(gi, gj)),
+        p, flush))
+    del packed
 
     # Buckets: every size class at its batch size, L = READ_LEN, d=1.
     rng = np.random.default_rng(2)
@@ -356,7 +375,47 @@ def time_kernels(dev: torch.device) -> None:
         lambda: ek.banded_within_edit_distance_indexed(keys, lens, ci, cj,
                                                        1),
         chip_smoke.banded_cost(lens_np[ci_np], lens_np[cj_np], 1, edit_pad,
-                               True), p, flush))
+                               chip_smoke.distinct_rows(ci, cj)), p, flush))
+    library_lines(dev, flush)
+
+
+def library_lines(dev: torch.device, flush: torch.Tensor) -> None:
+    """The library call beside kernels 1 and 2 at the shapes of
+    ``PERF.md``'s kernel table (buckets at the 50-symbol segment
+    complement of 100 bp keys, Lp 64; the 2048 x 2048 tile at L=100, Lp
+    112): ``chip_smoke.onehot_product``, the JAX package's non-Pallas
+    one-hot product, on prebuilt one-hots (``torch.bmm`` in fp16; one
+    ``torch._int_mm`` in int8 for the tile), timed as the kernels are,
+    beside the kernel on the same rows.  It leaves out the threshold and
+    the bit-pack."""
+    import chip_smoke
+    from fastqdedup_tpu_torch.ops import hamming_kernels as hk
+
+    rng = np.random.default_rng(4)
+    cases = [(k, s, 50, False) for s, k in ((128, 2048), (512, 256),
+                                            (2048, 16))]
+    cases.append((1, 2048, 100, True))
+    for k, s, length, tile in cases:
+        l_pad, a_pad = hk._pad_dims(length, 5)
+        rows = np.full((k, s, l_pad), 0xFF, dtype=np.uint8)
+        rows[:, :, :length] = rng.integers(0, 5, (k, s, length),
+                                           dtype=np.uint8)
+        a = torch.from_numpy(rows).to(dev)
+        b = a.clone() if tile else a
+        library, what = chip_smoke.onehot_product(a, b, a_pad, tile)
+        for label, fn in (("library", library), ("kernel", lambda: (
+                hk._pairs_within_launch("within_tile_packed", a, b, length,
+                                        1, a_pad) if tile else
+                hk.bucket_within_packed(a, length, 1, a_pad)))):
+            warm = statistics.median(chip_smoke.graph_ms(fn))
+            cold = statistics.median(cold_ms(fn, flush))
+            chip_smoke.emit({
+                "library_beside": "within_tile_packed" if tile
+                else "bucket_within_packed",
+                "shape": f"K={k} S={s} L={length} Lp={l_pad} Ap={a_pad}",
+                "call": what if label == "library" else label,
+                "wall_s": warm / 1e3, "wall_s_cold": cold / 1e3})
+        del a, b, library
 
 
 def main(argv) -> int:

@@ -21,15 +21,19 @@ Phases, each printing one JSON line to stdout:
    in the last symbol or in the first pad byte, widths 1, 30, 100 and
    300, d at and above the width, P = 1 and P off the block's pairs, and
    the indexed entry, also with equal and repeated indices; d = 1, 2 and
-   6 are timed; and ``edit_verify_indexed(..., packed=True)`` on the
-   nibble-packed key matrix against ``packed=False``).  A timed line
-   carries the kernel's time from
+   6 are timed; ``edit_verify_indexed(..., packed=True)`` on the
+   nibble-packed key matrix against ``packed=False``; for the pair-list
+   kernel paired rows and its indexed entry, the pair-list route's
+   launch, at P off the block with 5, 13, 19 and 27 lanes).  A timed
+   line carries the kernel's time from
    CUDA-graph replays (``ms``, no host gaps; inputs L2-warm), the time of
    one launch between two events (``ms_one_launch``, which includes the
    host's launch path), the plain version's time taken in turns with it,
    and the kernel's bound on this card: the bytes and operations counted
    from the shapes (``kernel_bound``), the larger of their two times, and
-   the share of it the kernel reached;
+   the share of it the kernel reached; for the all-pairs kernel also
+   ``library_ms``, the one-hot product of ``onehot_product`` timed the
+   same way (match counts only);
    ``verify`` — every kernel against host oracles that share no code with
    the port's plain versions (numpy all-pairs comparisons, the scalar
    ``distance.within_distance``) at the 19 geometries of
@@ -69,6 +73,14 @@ Phases, each printing one JSON line to stdout:
    and ``pop_all_clusters`` over 2,000 reads with indels) on the card and
    on the CPU device: equal answers, and the card's run, counted from 0,
    launches the edit kernel;
+   ``async`` — pass 2's asynchronous transfers: the bucket route
+   (several batches in flight), the pair-list route and edit
+   verification batches, every upload delayed on the device by about
+   10 ms of spinning, must give the CPU device's pairs and answers
+   exactly; then the ``umi12`` and ``dense`` runs under
+   ``torch.cuda.set_sync_debug_mode("warn")``, with the synchronizing
+   calls counted by the line of the port that made them and summed for
+   ``ops/bucket.py`` and ``ops/edit.py``;
 9. ``distributed`` — two processes of one ``torch.distributed`` job
    (gloo over a ``TCPStore`` on localhost, both on ``cuda:0``) run the
    ``default``, ``umi12`` and ``edit`` inputs (BGZF, so each process
@@ -95,7 +107,7 @@ line.  Without CUDA, or without the package beside this script, it exits
 2 and prints no result.  ``--distributed-worker`` and
 ``--first-run-worker`` are child processes started by the script itself.
 
-Six shorter runs for measurements, none of which prints a result
+Eight shorter runs for measurements, none of which prints a result
 line: ``python3 chip_smoke.py --kernels`` stops after phase 3, and
 ``python3 chip_smoke.py --repeats N default umi12 dense`` runs each named
 input once and then N more times (sha256 checked every time) and prints
@@ -115,7 +127,16 @@ bringing the card up one after the other with nothing else running;
 ``python3 chip_smoke.py --packed-keys N edit indel`` runs each named
 Levenshtein input in N rounds of plain, packed, packed, plain key matrix
 (``engine.PACK_KEY_MATRIX``) and prints the run, the packing, the
-verification batches and the copy of each form.
+verification batches and the copy of each form;
+``python3 chip_smoke.py --key-upload N edit indel`` runs each named
+Levenshtein input in N rounds of the key matrix sent pinned (the form
+the engine does not use, kept only in this measurement), from the
+engine's thread, from the thread, pinned, and prints per run the host
+seconds to the first verification batch;
+``python3 chip_smoke.py --sync-counts umi12 dense`` counts the
+synchronizing calls of one run of each named input, as the ``async``
+phase does (copied over an older checkout's own script, it counts that
+tree's).
 
 The expected sha256 values were computed with the JAX package on the CPU
 from byte-identical inputs: generate each input with
@@ -274,27 +295,68 @@ def pairs_within_cost(batch: int, n: int, m: int, l_pad: int, length: int,
             "ops_type": "int8"}
 
 
-def rowwise_cost(p: int, lanes: int) -> dict:
-    """Bytes and operations of the rowwise kernel: two 32-bit lanes read
-    per pair and lane, one byte written per pair; six integer
-    instructions per lane (xor, two shift-ors, mask, popcount, add)."""
-    return {"bytes": 2 * p * lanes * 4 + p, "ops": 6 * p * lanes,
-            "ops_type": "int32"}
+def distinct_rows(gi: torch.Tensor, gj: torch.Tensor) -> int:
+    """How many rows of a resident matrix the index pairs ``gi``, ``gj``
+    read: each of them is an input the indexed entry must read once."""
+    return int(torch.unique(torch.cat([gi, gj])).numel())
+
+
+def rowwise_cost(p: int, lanes: int, rows: "int | None" = None) -> dict:
+    """Bytes and operations of the rowwise kernel: two rows of 32-bit
+    lanes read per pair and one byte written per pair; through the
+    indexed entry (``rows``: the distinct rows its index pairs read,
+    :func:`distinct_rows`) each of those rows once and two int32 indices
+    per pair; six integer instructions per lane (xor, two shift-ors,
+    mask, popcount, add)."""
+    read = 2 * p * lanes * 4 if rows is None else rows * lanes * 4 + 8 * p
+    return {"bytes": read + p, "ops": 6 * p * lanes, "ops_type": "int32"}
+
+
+def onehot_product(a: torch.Tensor, b: torch.Tensor, alphabet_pad: int,
+                   int8: bool) -> tuple:
+    """The library call that stands beside the all-pairs kernel: the JAX
+    package's non-Pallas formulation (``fastqdedup_tpu/ops/bucket.py:
+    131-150``), one product of one-hot operands, on one-hots built here
+    beforehand.  ``a``, ``b``: uint8 [K, N, Lp] and [K, M, Lp] on the
+    card (one tensor for buckets).  Returns (the call, what it is):
+    ``torch.bmm`` in fp16 of [K, N, Lp*A] one-hots, or for one tile
+    (K = 1) ``torch._int_mm`` in int8.  It computes the match counts
+    only: the threshold and the bit-pack are left out."""
+    symbols = torch.arange(alphabet_pad, device=a.device, dtype=torch.int16)
+
+    def hot(rows, dtype):
+        oh = rows.to(torch.int16).unsqueeze(-1) == symbols
+        return oh.reshape(rows.shape[0], rows.shape[1], -1).to(
+            dtype).contiguous()
+
+    what = "(match counts only: no threshold, no bit-pack)"
+    if int8:
+        ha = hot(a, torch.int8)[0]
+        hb = ha if b is a else hot(b, torch.int8)[0]
+        return (lambda: torch._int_mm(ha, hb.t()),
+                f"torch._int_mm int8 {list(ha.shape)} x "
+                f"{list(hb.shape)}^T {what}")
+    ha = hot(a, torch.float16)
+    hb = ha if b is a else hot(b, torch.float16)
+    return (lambda: torch.bmm(ha, hb.transpose(1, 2)),
+            f"torch.bmm fp16 {list(ha.shape)} x {list(hb.shape)}^T {what}")
 
 
 def banded_cost(len_a: np.ndarray, len_b: np.ndarray, d: int, l_pad: int,
-                indexed: bool) -> dict:
+                rows: "int | None" = None) -> dict:
     """Bytes and operations of the banded edit kernel on these lengths:
-    both rows, both lengths and one output byte per pair (and two int32
-    indices through the indexed entry); four integer operations (compare,
-    two minima, add) per cell of the band, 2d + 1 cells per row of a, for
-    the pairs whose lengths differ by at most d (the others stop at
-    once)."""
+    both rows, both lengths and one output byte per pair; through the
+    indexed entry (``rows``: the distinct keys its index pairs read,
+    :func:`distinct_rows`) each of those keys and its length once and two
+    int32 indices per pair; four integer operations (compare, two minima,
+    add) per cell of the band, 2d + 1 cells per row of a, for the pairs
+    whose lengths differ by at most d (the others stop at once)."""
     p = len(len_a)
     runs = np.abs(len_a.astype(np.int64) - len_b) <= d
     cells = int(len_a[runs].astype(np.int64).sum()) * (2 * d + 1)
-    return {"bytes": p * (2 * l_pad + 8 + 1 + (8 if indexed else 0)),
-            "ops": 4 * cells, "ops_type": "int32"}
+    read = p * (2 * l_pad + 8) if rows is None \
+        else rows * (l_pad + 4) + 8 * p
+    return {"bytes": read + p, "ops": 4 * cells, "ops_type": "int32"}
 
 
 def kernel_bound(cost: dict) -> dict:
@@ -676,6 +738,31 @@ def rowwise_pair(rng, p: int, lanes: int):
             torch.from_numpy(b.view(np.int32)))
 
 
+def rowwise_indexed_batch(rng, p: int, n: int, lanes: int):
+    """One batch of the pair-list route: an int32 [n, lanes] packed
+    matrix whose rows 2k and 2k + 1 differ in 0-3 nibbles, and ``p``
+    int32 index pairs, most of them such neighbours, a quarter random,
+    some repeated.  The last lane holds pad nibbles (0xF) past 8 * lanes
+    - 3 symbols."""
+    rows = rng.integers(0, 1 << 32, (n, lanes), dtype=np.uint64).astype(
+        np.uint32)
+    rows[:, -1] |= np.uint32(0xFFF00000)
+    rows[1::2] = rows[0:n - n % 2:2]
+    odd = np.arange(1, n, 2)
+    for _ in range(3):
+        hit = odd[rng.random(len(odd)) < 0.4]
+        shift = 4 * rng.integers(0, 5, len(hit)).astype(np.uint64)
+        flip = rng.integers(1, 16, len(hit)).astype(np.uint64) << shift
+        rows[hit, rng.integers(0, lanes, len(hit))] ^= flip.astype(np.uint32)
+    gi = 2 * rng.integers(0, n // 2 or 1, p)
+    gj = np.minimum(gi + 1, n - 1)
+    far = rng.random(p) < 0.25
+    gj[far] = rng.integers(0, n, int(far.sum()))
+    return (torch.from_numpy(rows.view(np.int32)),
+            torch.from_numpy(gi.astype(np.int32)),
+            torch.from_numpy(gj.astype(np.int32)))
+
+
 def edit_pairs(rng, p: int, d: int, l_pad: int = 112, gap=None):
     """uint8 [P, Lp] read pairs as edit verification meets them: 100 bp
     reads of lengths 99/100/101, partners with substitutions and a share
@@ -777,7 +864,7 @@ def check_kernels(dev) -> dict:
     summary = {}
 
     def record(name, case, got, want, kernel_fn, plain_fn, main,
-               timed=None, cost=None, extra=None):
+               timed=None, cost=None, extra=None, library=None):
         err = bit_err(got.cpu(), want.cpu())
         ones = int(want.to(torch.uint8).cpu().numpy().view(np.uint8)
                    .astype(np.uint64).sum()) if want.dtype == torch.bool \
@@ -790,6 +877,11 @@ def check_kernels(dev) -> dict:
             line["share_of_bound"] = line["bound_ms"] / line["ms"]
             line["library_ms"] = None
             line["library"] = NO_LIBRARY
+            if library is not None:
+                library_fn, line["library"] = library()
+                line["library_ms"] = statistics.median(graph_ms(library_fn))
+                line["library_timing"] = "CUDA-graph replays of 20 calls, " \
+                    "L2-warm, as ms"
             if extra is not None:
                 line.update(extra())
         emit(line)
@@ -842,7 +934,8 @@ def check_kernels(dev) -> dict:
                lambda: hk.pairs_within_plain(batch, batch, length, d,
                                              a_pad),
                (s, k) == (128, 2048), timed,
-               pairs_within_cost(k, s, s, l_pad, length, a_pad, True))
+               pairs_within_cost(k, s, s, l_pad, length, a_pad, True),
+               library=lambda: onehot_product(batch, batch, a_pad, False))
         del batch, got, want
 
     # Kernel 2: the 2048 x 2048 tile sweep at 100 bp keys; then N != M,
@@ -879,21 +972,50 @@ def check_kernels(dev) -> dict:
                                              d, a_pad), main,
                cost=pairs_within_cost(1, n, m, l_pad, length, a_pad, False),
                extra=lambda: {"ms_wrapper": statistics.median(graph_ms(
-                   lambda: hk.within_tile_packed(a, b, alphabet, d)))})
+                   lambda: hk.within_tile_packed(a, b, alphabet, d)))},
+               library=lambda: onehot_product(pa[None], pb[None], a_pad,
+                                              True))
 
     # Kernel 3: pair lists at the verifier's batch (2^21 pairs of 13
-    # lanes: 100 bp keys, 8 symbols per lane).
-    for p, lanes, d, main in ((1 << 21, 13, 1, True), (1 << 16, 13, 0, False),
-                              (1 << 16, 7, 2, False)):
+    # lanes: 100 bp keys, 8 symbols per lane), paired rows; then the
+    # indexed entry the pair-list route launches, at the same batch into
+    # a resident matrix of 400k keys (about the dense input's unique
+    # keys; main), and at pair counts off the block of 256 with 5, 13,
+    # 19 and 27 lanes.
+    name = "rowwise_within_packed"
+    for p, lanes, d, timed in ((1 << 21, 13, 1, True),
+                               (1 << 16, 13, 0, False),
+                               (1 << 16, 7, 2, False)):
         a, b = rowwise_pair(rng, p, lanes)
         a, b = a.to(dev), b.to(dev)
         got = hk.rowwise_within_packed(a, b, d)
         torch.cuda.synchronize()
         want = hk.rowwise_within_plain(a, b, d)
-        record("rowwise_within_packed", f"P={p} lanes={lanes} d={d}", got,
-               want, lambda: hk.rowwise_within_packed(a, b, d),
-               lambda: hk.rowwise_within_plain(a, b, d), main,
+        record(name, f"P={p} lanes={lanes} d={d}", got, want,
+               lambda: hk.rowwise_within_packed(a, b, d),
+               lambda: hk.rowwise_within_plain(a, b, d), False, timed,
                cost=rowwise_cost(p, lanes))
+    for p, n, lanes, d, main in ((1 << 21, 400_000, 13, 1, True),
+                                 (1 << 16 | 77, 400_000, 13, 2, False),
+                                 (1, 50, 5, 1, False),
+                                 (1000, 3000, 5, 0, False),
+                                 (4099, 3000, 19, 2, False),
+                                 (70_001, 90_000, 27, 1, False),
+                                 (257, 600, 27, 3, False)):
+        packed, gi, gj = rowwise_indexed_batch(rng, p, n, lanes)
+        packed, gi, gj = packed.to(dev), gi.to(dev), gj.to(dev)
+        got = hk.rowwise_within_packed_indexed(packed, gi, gj, d)
+        torch.cuda.synchronize()
+
+        def gathered_plain():
+            return hk.rowwise_within_plain(packed.index_select(0, gi),
+                                           packed.index_select(0, gj), d)
+
+        record(name, f"indexed: P={p} into n={n} rows lanes={lanes} d={d}",
+               got, gathered_plain(),
+               lambda: hk.rowwise_within_packed_indexed(packed, gi, gj, d),
+               gathered_plain, main,
+               cost=rowwise_cost(p, lanes, distinct_rows(gi, gj)))
 
     # Kernel 4: one verification batch of the edit path (2^16 pairs of
     # 100 bp keys padded to 112) at d = 1, 2 and 6, timed, and d = 0 and
@@ -911,8 +1033,7 @@ def check_kernels(dev) -> dict:
                lambda: ek.banded_within_edit_distance(a, la, b, lb, d),
                lambda: ek.banded_within_plain(a, la, b, lb, d), False,
                timed=d in (1, 2, 6),
-               cost=banded_cost(la.cpu().numpy(), lb.cpu().numpy(), d, 112,
-                                False))
+               cost=banded_cost(la.cpu().numpy(), lb.cpu().numpy(), d, 112))
     for d in (1, 6):
         # Lengths anywhere in [0, Lp]: most gaps exceed d.
         a, _, b, _ = edit_pairs(rng, 8192, d)
@@ -975,7 +1096,8 @@ def check_kernels(dev) -> dict:
                                                           cj, 1),
            gathered_plain, True,
            cost=banded_cost(lens[ci.long()].cpu().numpy(),
-                            lens[cj.long()].cpu().numpy(), 1, 112, True))
+                            lens[cj.long()].cpu().numpy(), 1, 112,
+                            distinct_rows(ci, cj)))
     # The nibble-packed key matrix: the same batch with every symbol at
     # most 14 and 0xFF past the lengths, verified from the packed matrix
     # (rows gathered and unpacked by torch ops, then the paired entry)
@@ -1125,6 +1247,7 @@ def launch_shapes(store: list):
     # entry point: (position of rows, position of the distance)
     entries = {"fqd_pairs_within_packed": (4, 10),
                "fqd_rowwise_within_packed": (4, 5),
+               "fqd_rowwise_within_packed_indexed": (5, 6),
                "fqd_banded_within_edit": (8, 9)}
     inner = {name: getattr(lib, name) for name in entries}
 
@@ -1156,7 +1279,8 @@ CONFIG_LAUNCHES = (
      "umi12-d2", {"FASTQDEDUP_DISPATCH_S": "1e-9",
                   "FASTQDEDUP_H2D_RATE": "1e-9"}),
     ("pair-list kernel at d=2",
-     lambda name, rows, d: name == "fqd_rowwise_within_packed" and d == 2,
+     lambda name, rows, d: name.startswith("fqd_rowwise_within_packed")
+     and d == 2,
      "umi3", {"FASTQDEDUP_DISPATCH_S": "1e-9",
               "FASTQDEDUP_H2D_RATE": "1e15",
               "FASTQDEDUP_HOST_RATE": "1.0"}),
@@ -2016,6 +2140,292 @@ def run_packed_keys(rounds: int, names) -> int:
     return 0
 
 
+# --------------------------------------------------------------------- #
+# The async phase, --sync-counts and --key-upload: pass 2's transfers
+
+
+# About 10 ms of spinning at the H100's clock: far longer than the host
+# takes to queue the next batch, so a result read before its copy landed,
+# or a staging buffer handed out again before its copy read it, shows.
+DELAY_CYCLES = 20_000_000
+
+
+def sync_sites(fn) -> dict:
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")`` and
+    count each synchronizing CUDA call it makes, by the innermost line of
+    the port's package on the caller's stack (``"ops/bucket.py:NNN"``),
+    or ``"elsewhere"``."""
+    import traceback
+    import warnings
+
+    package = os.path.join(HERE, "fastqdedup_tpu_torch") + os.sep
+    sites: dict = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        previous = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None,
+                 line=None):
+            if "synchronizing CUDA operation" not in str(message):
+                return previous(message, category, filename, lineno, file,
+                                line)
+            site = "elsewhere"
+            for frame in reversed(traceback.extract_stack()[:-1]):
+                if frame.filename.startswith(package):
+                    site = (f"{os.path.relpath(frame.filename, package)}:"
+                            f"{frame.lineno}")
+                    break
+            sites[site] = sites.get(site, 0) + 1
+
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def sync_counts(workdir: str, files: dict, names, phase: str) -> dict:
+    """One run of each named input under :func:`sync_sites` (the rate
+    probes of pass 2 already measured by an earlier run in this
+    process); per input the synchronizing calls made in ``ops/bucket.py``
+    and ``ops/edit.py`` (and ``ops/transfer.py``, where results are
+    waited for), every site, and the run's launches."""
+    counts = {}
+    for name in names:
+        lines = []
+        sites = sync_sites(lambda: lines.append(run_pipeline(
+            workdir, name, files, f"{name}-sync", phase=phase)))
+        by_file = {path: sum(n for site, n in sites.items()
+                             if site.startswith(path + ":"))
+                   for path in ("ops/bucket.py", "ops/edit.py",
+                                "ops/transfer.py")}
+        counts[name] = by_file
+        emit({"phase": phase, "input": name, "syncs": by_file,
+              "syncs_total": sum(sites.values()), "sites": sites,
+              "launches": lines[0]["launches"]})
+    return counts
+
+
+def delayed(module, name: str):
+    """Make ``module.name`` (an upload) queue :data:`DELAY_CYCLES` of
+    spinning on the current stream before its copy; returns the undo."""
+    inner = getattr(module, name)
+
+    def slow(host, dev):
+        with torch.cuda.device(dev):
+            torch.cuda._sleep(DELAY_CYCLES)
+        return inner(host, dev)
+
+    setattr(module, name, slow)
+    return lambda: setattr(module, name, inner)
+
+
+def delayed_matrix(rng, length: int = 50) -> np.ndarray:
+    """Unique uint8 keys for the delayed-stream check: 3,000 keys with
+    three copies each one symbol off in the second half (buckets of four
+    on the first segment: the pair-list route), and 24 families of 300
+    keys sharing their first half (buckets for the all-pairs kernel)."""
+    half = np.arange(length // 2, length)
+
+    def near(rows):
+        out = rows.copy()
+        pos = rng.choice(half, len(rows))
+        at = np.arange(len(rows))
+        out[at, pos] = (out[at, pos] + rng.integers(1, 5, len(rows))) % 5
+        return out
+
+    base = rng.integers(0, 5, (3000, length), dtype=np.uint8)
+    rows = [base] + [near(base) for _ in range(3)]
+    for _ in range(24):
+        rows.append(near(np.repeat(
+            rng.integers(0, 5, (1, length), dtype=np.uint8), 300, axis=0)))
+    return np.unique(np.concatenate(rows), axis=0)
+
+
+def check_delayed_stream() -> dict:
+    """Every upload of the bucket route, the pair-list route and the edit
+    verification delayed on the device (:func:`delayed`) while the host
+    runs ahead: the card's pairs and answers must equal the CPU device's
+    (plain versions) exactly.  A result read before its copy landed, or a
+    pinned staging block reused before its copy read it, would differ.
+    Several bucket batches are in flight at once (two buckets a batch)."""
+    from fastqdedup_tpu_torch.ops import bucket
+    from fastqdedup_tpu_torch.ops import edit as edit_ops
+
+    rng = np.random.default_rng(12)
+    matrix = delayed_matrix(rng)
+    knobs = {"FASTQDEDUP_DISPATCH_S": "1e-9", "FASTQDEDUP_H2D_RATE": "1e15",
+             "FASTQDEDUP_HOST_RATE": "1.0"}
+    per_call = bucket._buckets_per_call
+    bucket._buckets_per_call = lambda size_class: 2
+    results, counts = {}, {}
+    try:
+        for dev in ("cpu", "cuda"):
+            with environment({**knobs, "FASTQDEDUP_TORCH_DEVICE": dev}):
+                undo = delayed(bucket, "upload") if dev == "cuda" \
+                    else (lambda: None)
+                before = launch_counts()
+                t0 = time.perf_counter()
+                try:
+                    results[dev] = bucket.hamming_neighbor_pairs_bucketed(
+                        matrix, 5, 1)
+                finally:
+                    undo()
+                seconds = time.perf_counter() - t0
+                after = launch_counts()
+            counts[dev] = {k: after[k] - before[k] for k in after}
+            emit({"phase": "async", "check": "delayed stream, bucket and "
+                  "pair-list routes", "device": dev, "keys": len(matrix),
+                  "pairs": len(results[dev][0]), "seconds": seconds,
+                  "launches": counts[dev]})
+    finally:
+        bucket._buckets_per_call = per_call
+    for got, want in zip(results["cuda"], results["cpu"]):
+        if not np.array_equal(got, want):
+            fail("async: delayed bucket and pair-list batches gave other "
+                 "pairs than the CPU device")
+    for kernel in ("bucket_within_packed", "rowwise_within_packed"):
+        if counts["cuda"][kernel] < 2:
+            fail(f"async: the delayed run launched {kernel} "
+                 f"{counts['cuda'][kernel]} times, not several")
+    # The edit route: index batches of one resident key matrix.
+    dev = torch.device("cuda", 0)
+    keys, lens, ci, cj = indexed_edit_batch(rng, 1 << 16, torch.device("cpu"))
+    keys_dev, lens_dev = keys.to(dev), lens.to(dev)
+    ci_np, cj_np = ci.numpy(), cj.numpy()
+    undo = delayed(edit_ops, "upload")
+    try:
+        got = [edit_ops.edit_verify_indexed(keys_dev, lens_dev,
+                                            ci_np[s:s + 8192],
+                                            cj_np[s:s + 8192], 1)
+               for s in range(0, len(ci_np), 8192)]
+    finally:
+        undo()
+    want = edit_ops.edit_verify_indexed(keys, lens, ci_np, cj_np, 1)
+    if not np.array_equal(np.concatenate(got), want):
+        fail("async: delayed edit verification gave other answers than "
+             "the CPU device")
+    emit({"phase": "async", "check": "delayed stream, edit verification",
+          "batches": len(got), "pairs": len(want),
+          "true_answers": int(want.sum())})
+    return counts["cuda"]
+
+
+def run_sync_counts(names) -> int:
+    """``--sync-counts NAME...``: each named input once to measure the
+    rate probes, then once under :func:`sync_sites`.  The function also
+    runs on an older checkout of the port (copy this script over its
+    own): the two trees' counts in one call."""
+    os.environ["FASTQDEDUP_TORCH_DEVICE"] = "cuda"
+    workdir = tempfile.mkdtemp(
+        prefix="sync_", dir=os.path.join(HERE, "fastqdedup_tpu_torch",
+                                         "build"))
+    try:
+        files = generate_files(workdir, files_of(names))
+        for name in names:
+            run_pipeline(workdir, name, files, f"{name}-first")
+        sync_counts(workdir, files, names, "sync-counts")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return 0
+
+
+def run_key_upload(rounds: int, names) -> int:
+    """``--key-upload ROUNDS NAME...``: each named Levenshtein run in
+    ``rounds`` rounds of the key matrix sent pinned, from the engine's
+    thread (``engine._start_key_upload``), from the thread, pinned,
+    every sha256 checked.  The pinned form, which the engine does not
+    use, builds both arrays in pinned host memory and copies them
+    ``non_blocking`` on the current stream.  Per run: the host seconds
+    from entering the edit-edge step to the first verification batch
+    (``to_first_verify_s``), within them the enqueue of the copy
+    (``upload_start_s``) and the wait for it (``upload_wait_s``), the
+    edit-edge step and the whole run."""
+    from fastqdedup_tpu_torch import engine
+    from fastqdedup_tpu_torch.ops import edit as edit_ops
+    from fastqdedup_tpu_torch.ops.transfer import staging, upload
+
+    def pinned(keys: np.ndarray, lens: np.ndarray, dev):
+        tensors = []
+        for array in (keys, lens):
+            host = staging(array.shape, torch.from_numpy(array).dtype, dev)
+            host.numpy()[...] = array
+            tensors.append(upload(host, dev))
+        return lambda: tuple(tensors)
+
+    os.environ["FASTQDEDUP_TORCH_DEVICE"] = "cuda"
+    marks: dict = {}
+    inner_edges = engine._edit_edges_entries
+    inner_start = engine._start_key_upload
+    inner_verify = edit_ops.edit_verify_indexed
+    forms = {"pinned": pinned, "thread": inner_start}
+
+    def edges(*args, **kwargs):
+        marks["enter"] = time.perf_counter()
+        out = inner_edges(*args, **kwargs)
+        marks["edges_s"] = time.perf_counter() - marks["enter"]
+        return out
+
+    def timed_start(form):
+        def start(*args):
+            t0 = time.perf_counter()
+            result = forms[form](*args)
+            marks["upload_start_s"] = time.perf_counter() - t0
+
+            def wait():
+                t1 = time.perf_counter()
+                tensors = result()
+                marks["upload_wait_s"] = time.perf_counter() - t1
+                return tensors
+
+            return wait
+
+        return start
+
+    def verify(*args, **kwargs):
+        marks.setdefault("first_verify", time.perf_counter())
+        return inner_verify(*args, **kwargs)
+
+    engine._edit_edges_entries = edges
+    edit_ops.edit_verify_indexed = verify
+    workdir = tempfile.mkdtemp(
+        prefix="keys_", dir=os.path.join(HERE, "fastqdedup_tpu_torch",
+                                         "build"))
+    try:
+        files = generate_files(workdir, files_of(names))
+        for name in names:
+            if not INPUTS[name][4]:
+                fail(f"--key-upload: {name!r} is not a Levenshtein run")
+            run_pipeline(workdir, name, files, f"{name}-first")
+            rows: dict = {form: [] for form in forms}
+            for turn in range(rounds):
+                for form in ("pinned", "thread", "thread", "pinned"):
+                    engine._start_key_upload = timed_start(form)
+                    marks.clear()
+                    line = run_pipeline(workdir, name, files,
+                                        f"{name}-t{turn}-{form}")
+                    rows[form].append({
+                        "run_s": line["seconds"],
+                        "edges_s": marks["edges_s"],
+                        "to_first_verify_s":
+                            marks["first_verify"] - marks["enter"],
+                        "upload_start_s": marks["upload_start_s"],
+                        "upload_wait_s": marks["upload_wait_s"]})
+            for form, runs in rows.items():
+                emit({"phase": "key-upload", "input": name, "form": form,
+                      "runs": runs, "median_s": {
+                          key: statistics.median(run[key] for run in runs)
+                          for key in runs[0]}})
+    finally:
+        engine._edit_edges_entries = inner_edges
+        engine._start_key_upload = inner_start
+        edit_ops.edit_verify_indexed = inner_verify
+        shutil.rmtree(workdir, ignore_errors=True)
+    return 0
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2049,6 +2459,10 @@ def main(argv) -> int:
         return run_first_runs(argv[1:])
     if argv[:1] == ["--packed-keys"]:
         return run_packed_keys(int(argv[1]), argv[2:])
+    if argv[:1] == ["--sync-counts"]:
+        return run_sync_counts(argv[1:])
+    if argv[:1] == ["--key-upload"]:
+        return run_key_upload(int(argv[1]), argv[2:])
     if argv == ["--phases"]:
         return run_phases(dev)
     if argv == ["--edit-variants"]:
@@ -2126,6 +2540,13 @@ def main(argv) -> int:
         # The Trie API: a second entry point of the Levenshtein path,
         # with counts of its own.
         check_trie_api()
+        # Pass 2's asynchronous transfers: delayed uploads read nothing
+        # early, and the synchronizing calls left in a run.
+        t0 = time.perf_counter()
+        check_delayed_stream()
+        syncs = sync_counts(workdir, files, ("umi12", "dense"), "async")
+        emit({"phase": "async", "seconds": time.perf_counter() - t0,
+              "syncs": syncs})
         # Two processes, each counting from 0 before every run.
         distributed_launches = run_distributed(workdir, files, single)
         check_mesh(*max(umi12_edges, key=lambda e: len(e[1])))

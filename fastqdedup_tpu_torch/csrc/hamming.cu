@@ -62,6 +62,10 @@
 //   Bound on the H100: device-memory bytes (8 B read per lane per pair,
 //   about 6 instructions per lane).  One thread per pair reads its row
 //   directly from the row-major [P, lanes] layout; no transpose.
+//   rowwise_within_indexed_kernel is the same body over int32 index
+//   pairs into one resident [n, lanes] matrix (the pair-list route's
+//   entry): 8 B of indices a pair in place of two gathered rows, and no
+//   gather launches before it.
 //
 // Entry points take raw device pointers and PyTorch's current stream,
 // allocate nothing, do not synchronise, and return the first CUDA error.
@@ -586,15 +590,10 @@ pairs_within_simt_kernel(const uint32_t* __restrict__ a,
   out[out_row * (m / 8) + blockIdx.x * kColBytes + byte] = (uint8_t)bits;
 }
 
-__global__ void rowwise_within_kernel(const uint32_t* __restrict__ a,
-                                      const uint32_t* __restrict__ b,
-                                      uint8_t* __restrict__ out,
-                                      long long p, int lanes,
-                                      int max_distance) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p) return;
-  const uint32_t* ra = a + i * lanes;
-  const uint32_t* rb = b + i * lanes;
+// Symbols that differ between two nibble-packed rows of `lanes` lanes.
+__device__ __forceinline__ int nibble_mismatches(
+    const uint32_t* __restrict__ ra, const uint32_t* __restrict__ rb,
+    int lanes) {
   int mismatches = 0;
   for (int k = 0; k < lanes; ++k) {
     // A non-zero XOR nibble collapses to exactly one set bit.
@@ -603,6 +602,34 @@ __global__ void rowwise_within_kernel(const uint32_t* __restrict__ a,
     x |= x >> 1;
     mismatches += __popc(x & 0x11111111u);
   }
+  return mismatches;
+}
+
+__global__ void rowwise_within_kernel(const uint32_t* __restrict__ a,
+                                      const uint32_t* __restrict__ b,
+                                      uint8_t* __restrict__ out,
+                                      long long p, int lanes,
+                                      int max_distance) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p) return;
+  const int mismatches = nibble_mismatches(a + i * lanes, b + i * lanes,
+                                           lanes);
+  out[i] = mismatches <= max_distance ? 1 : 0;
+}
+
+// The same answer for pair i of rows gi[i] and gj[i] of one resident
+// packed matrix: the gather of the JAX package's jitted jnp.take happens
+// in the row loads (fastqdedup_tpu/ops/bucket.py:423-427), so a batch is
+// one launch over 8 bytes of indices a pair.
+__global__ void rowwise_within_indexed_kernel(
+    const uint32_t* __restrict__ packed, const int* __restrict__ gi,
+    const int* __restrict__ gj, uint8_t* __restrict__ out, long long p,
+    int lanes, int max_distance) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p) return;
+  const int mismatches = nibble_mismatches(
+      packed + (long long)gi[i] * lanes, packed + (long long)gj[i] * lanes,
+      lanes);
   out[i] = mismatches <= max_distance ? 1 : 0;
 }
 
@@ -684,6 +711,23 @@ int fqd_rowwise_within_packed(const void* a, const void* b, void* out,
     rowwise_within_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a, (const uint32_t*)b, (uint8_t*)out, p, lanes,
         max_distance);
+  }
+  return (int)cudaGetLastError();
+}
+
+// packed: 32-bit lanes [n, lanes], row-major; gi, gj: int32 [p] row
+// indices in [0, n) (the caller checks); out: bool [p].
+int fqd_rowwise_within_packed_indexed(const void* packed, const void* gi,
+                                      const void* gj, void* out, long long p,
+                                      int lanes, int max_distance,
+                                      void* stream) {
+  const int threads = 256;
+  const unsigned int blocks = (unsigned int)((p + threads - 1) / threads);
+  if (blocks > 0) {
+    rowwise_within_indexed_kernel<<<blocks, threads, 0,
+                                    (cudaStream_t)stream>>>(
+        (const uint32_t*)packed, (const int*)gi, (const int*)gj,
+        (uint8_t*)out, p, lanes, max_distance);
   }
   return (int)cudaGetLastError();
 }

@@ -218,6 +218,59 @@ def _host_edit_edges(keys: Sequence[bytes], max_distance: int
 PACK_KEY_MATRIX = False
 
 
+def _start_key_upload(keys: np.ndarray, lens: np.ndarray, dev):
+    """Enqueue the copy of the key matrix and its lengths to ``dev`` and
+    return at once: a function that gives ``(keys_dev, lens_dev)``, after
+    which a launch on the current stream reads them only once they have
+    landed.  The JAX package enqueues a ``device_put`` here, so that the
+    copy overlaps candidate generation (fastqdedup_tpu/engine.py:240-257).
+
+    A helper thread copies the pageable arrays on a side stream; the
+    function joins it and makes the current stream wait for the side
+    stream.  This form is kept over a pinned ``non_blocking`` copy on
+    the current stream for what it costs the host to enqueue: 0.9-2.8
+    ms against 5.6-25.1 ms to copy the 44 MB matrix of 1M reads with
+    indels into pinned memory, on an NVIDIA H100 80GB HBM3 (700 W,
+    chip_smoke.py --key-upload 8 edit indel).  It also pins no host
+    block the size of the matrix, which torch's caching host allocator
+    would keep for the life of the process.  The host time to the first
+    verification did not separate the two forms.  On the CPU device
+    nothing is copied."""
+    import threading
+
+    import torch
+
+    if dev.type != "cuda":
+        tensors = (torch.from_numpy(keys), torch.from_numpy(lens))
+        return lambda: tensors
+    side = torch.cuda.Stream(dev)
+    box = {}
+
+    def copy():
+        try:
+            with torch.cuda.stream(side):
+                box["tensors"] = tuple(
+                    torch.from_numpy(array).to(dev, non_blocking=True)
+                    for array in (keys, lens))
+        except BaseException as error:  # raised again at the join
+            box["error"] = error
+
+    thread = threading.Thread(target=copy, name="fastqdedup-key-upload")
+    thread.start()
+
+    def result():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        current = torch.cuda.current_stream(dev)
+        current.wait_stream(side)
+        for tensor in box["tensors"]:
+            tensor.record_stream(current)
+        return box["tensors"]
+
+    return result
+
+
 def _edit_on_card(dev) -> bool:
     """Whether edit verification takes the card's route (resident key
     matrix, indexed kernel) on ``dev``: the JAX package's TPU branch."""
@@ -229,8 +282,6 @@ def _edit_edges_entries(entries: Entries, n: int, max_distance: int,
                         ) -> Tuple[np.ndarray, np.ndarray]:
     import logging
     import time as _time
-
-    import torch
 
     from .ops.edit import (
         EDIT_VERIFY_BATCH,
@@ -263,16 +314,17 @@ def _edit_edges_entries(entries: Entries, n: int, max_distance: int,
         if length:
             padded[idx, :length] = matrix
 
-    keys_dev = lens_dev = None
+    key_upload = None
     # (lmax is a multiple of 16, so the packed rows have whole bytes.)
     keys_packed = on_card and PACK_KEY_MATRIX and \
         max((int(m.max(initial=0)) for m in matrices), default=0) <= 14
     if on_card:
-        # The key matrix goes to the card once, before candidate
-        # generation; each verification batch then sends only indices.
-        keys_dev = torch.from_numpy(
-            pack_nibble_rows(padded) if keys_packed else padded).to(dev)
-        lens_dev = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+        # The key matrix goes to the card once: its copy is enqueued now,
+        # so it overlaps candidate generation, and each verification
+        # batch then sends only indices.
+        key_upload = _start_key_upload(
+            pack_nibble_rows(padded) if keys_packed else padded,
+            lengths.astype(np.int32), dev)
     # Hash-run ownership shards candidate generation (sort + join) AND
     # the DP verification to ~1/P per host; the union of the per-host
     # verified edges is the full edge set (ops/bucket.edit_candidate_pairs).
@@ -285,6 +337,8 @@ def _edit_edges_entries(entries: Entries, n: int, max_distance: int,
                       "(%d pairs)", n, _t_pad - _t0, _t_cand - _t_pad,
                       len(cand_i))
     if not len(cand_i):
+        if key_upload is not None:
+            key_upload()  # a copy still reading ``padded`` ends first
         release(padded)
         return cand_i, cand_j
     keep = np.empty(len(cand_i), dtype=bool)
@@ -292,6 +346,7 @@ def _edit_edges_entries(entries: Entries, n: int, max_distance: int,
     if on_card:
         # Device-resident keys + per-batch index pairs: 8 bytes a pair
         # cross the wire instead of ~2 L (ops/edit.edit_verify_indexed).
+        keys_dev, lens_dev = key_upload()
         for start in range(0, len(cand_i), batch):
             sl = slice(start, start + batch)
             keep[sl] = edit_verify_indexed(keys_dev, lens_dev, cand_i[sl],

@@ -646,12 +646,15 @@ def rank_rows_native(matrix: np.ndarray, threads: int = 0) -> np.ndarray:
 
 def pack_nibbles_native(matrix: np.ndarray, lanes: int,
                         lut: "np.ndarray | None" = None,
-                        threads: int = 0) -> np.ndarray:
+                        threads: int = 0,
+                        out: "np.ndarray | None" = None) -> np.ndarray:
     """uint32 [n, lanes] nibble-packed rows (bit-identical to
     ops.encode.pack_nibbles), optionally translating raw bytes through a
     uint8[256] ``lut`` in the same pass.  One C pass over the rows vs
     numpy's ~10; raises ValueError for unsupported layouts/alphabets so
-    callers fall back to the numpy path."""
+    callers fall back to the numpy path.  ``out``: a C-contiguous uint32
+    [n, lanes] array to pack into (a pinned upload buffer) instead of a
+    new one."""
     n, w = matrix.shape
     if _pack_nibbles is None:
         raise ValueError("stale _fastq_io.so lacks fq_pack_nibbles")
@@ -663,7 +666,11 @@ def pack_nibbles_native(matrix: np.ndarray, lanes: int,
         lut = np.ascontiguousarray(lut, dtype=np.uint8)
         if lut.shape != (256,):
             raise ValueError("lut must be uint8[256]")
-    out = np.empty((n, lanes), dtype=np.uint32)
+    if out is None:
+        out = np.empty((n, lanes), dtype=np.uint32)
+    elif out.shape != (n, lanes) or out.dtype != np.uint32 \
+            or not out.flags.c_contiguous:
+        raise ValueError("out must be a C-contiguous uint32 [n, lanes]")
     if n == 0:
         return out
     if threads <= 0:

@@ -13,5 +13,7 @@
 * :mod:`.components` — host union-find and the device label
   propagation that parallel/sharded.py runs on a mesh of devices;
 * :mod:`.phred` — the opt-in device quality filter;
-* :mod:`.encode` — the alphabet table and nibble packing.
+* :mod:`.encode` — the alphabet table and nibble packing;
+* :mod:`.transfer` — pinned, ``non_blocking`` copies to and from the
+  card, read back after an event.
 """

@@ -13,8 +13,10 @@ finds every within-distance pair while skipping almost all of the N^2 space.
 Within-bucket comparison is batched across buckets into size classes: all
 buckets of (padded) size S are stacked into a [K, S, Lp] tensor and one
 launch of the all-pairs kernel produces per-bucket packed adjacency.
-Launches are enqueued on the current stream and drained after everything
-is queued.
+Each batch's upload (pinned, ``non_blocking``) and launch are enqueued on
+the current stream and the host goes on to the next batch; the drain
+starts every queued batch's device-to-host copy before it waits on the
+first (:mod:`.transfer`).
 
 The ``--edit`` mode's shifted-segment candidate generation
 (:func:`edit_candidate_pairs`) is host numpy, as in the JAX package; its
@@ -32,11 +34,11 @@ from ..parallel.distributed import _mix64
 from ..runtime import device as _device
 from ..runtime import local_devices
 from .hamming_kernels import (
-    ROW_BLOCK,
     _pad_dims,
     bucket_within_packed,
-    rowwise_within_packed,
+    rowwise_within_packed_indexed,
 )
+from .transfer import host_array, staging, start_host_copy, upload
 
 _PAD_INDEX = 0xFF  # one-hot of an out-of-range index is all-zero
 
@@ -153,15 +155,23 @@ def _bucketed_within(batch: np.ndarray, alphabet_size: int,
     16 with ``_PAD_INDEX``; the real length and distance are kernel
     arguments.  A CUDA device runs the kernel, the CPU device its plain
     version (``hamming_kernels.bucket_within_packed``).
+
+    On a CUDA device the padded batch is built in pinned host memory and
+    uploaded ``non_blocking`` on the current stream, as the JAX package's
+    ``jax.device_put`` returns before its copy lands: the call returns
+    with copy and kernel queued, and the host builds the next batch
+    meanwhile.  The staging tensor is dropped here; torch's caching host
+    allocator keeps its block until the copy has read it.
     """
     k, s, length = batch.shape
     l_pad, a_pad = _pad_dims(length, alphabet_size)
-    if l_pad != length:
-        batch = np.pad(batch, ((0, 0), (0, 0), (0, l_pad - length)),
-                       constant_values=_PAD_INDEX)
-    batch_dev = torch.from_numpy(np.ascontiguousarray(batch)).to(
-        device if device is not None else _device())
-    return bucket_within_packed(batch_dev, length, max_distance, a_pad)
+    dev = device if device is not None else _device()
+    host = staging((k, s, l_pad), torch.uint8, dev)
+    rows = host.numpy()
+    rows[:, :, :length] = batch
+    rows[:, :, length:] = _PAD_INDEX
+    return bucket_within_packed(upload(host, dev), length, max_distance,
+                                a_pad)
 
 
 # Bucket size classes: exactly these S values exist on device, and the
@@ -362,52 +372,57 @@ class _DevicePairVerifier:
     """Device-side verification of explicit candidate pair lists.
 
     The nibble-packed key matrix uploads ONCE; each batch then ships only
-    8 B/pair of indices, gathers the packed rows ON DEVICE with
-    ``index_select``, and runs the rowwise XOR+popcount kernel
-    (``hamming_kernels.rowwise_within_packed``).  This is the efficient
-    small-bucket device route: cost is proportional to pairs with no
-    per-bucket padding, so the crossover beats the host C verifier as
-    soon as pairs * L / host_rate exceeds the (amortized) pack+upload
-    plus 8 B/pair of wire — the dup-dense regime where pairs >> n/2.
-    Bit-identical to the host verify: full-row Hamming <= d.
-    The packed lanes live as int32 (torch has no uint32 ``index_select``);
-    the kernel reads them as unsigned.
+    8 B/pair of int32 indices in one pinned ``non_blocking`` copy, and
+    one launch of the indexed rowwise XOR+popcount kernel
+    (``hamming_kernels.rowwise_within_packed_indexed``) reads the packed
+    rows through them, as the JAX package gathers and verifies in one
+    jitted program.  This is the efficient small-bucket device route:
+    cost is proportional to pairs with no per-bucket padding, so the
+    crossover beats the host C verifier as soon as pairs * L / host_rate
+    exceeds the (amortized) pack+upload plus 8 B/pair of wire — the
+    dup-dense regime where pairs >> n/2.  Bit-identical to the host
+    verify: full-row Hamming <= d.  The packed lanes live as int32 (torch
+    has no uint32 ``index_select``); the kernel reads them as unsigned.
+    The JAX package pads each batch to a power of two for its compiled
+    shapes; the CUDA kernel takes any P, so no pair is padded here.
     """
 
     def __init__(self, matrix: np.ndarray, encode_lut, max_distance: int):
         n, length = matrix.shape
         lanes = max(-(-length // 8), 1)
+        self._device = _device()
+        # Packed straight into the pinned upload buffer.
+        host = staging((n, lanes), torch.int32, self._device)
+        packed = host.numpy().view(np.uint32)
         try:
             from ..native.loader import pack_nibbles_native
-            packed = pack_nibbles_native(matrix, lanes, lut=encode_lut)
+            pack_nibbles_native(matrix, lanes, lut=encode_lut, out=packed)
         except (ImportError, ValueError):
             from .encode import pack_nibbles
             idx = matrix if encode_lut is None else encode_lut[matrix]
-            packed = pack_nibbles(idx, lanes)
-        self._device = _device()
-        self._packed = torch.from_numpy(packed.view(np.int32)).to(
-            self._device)
+            packed[:] = pack_nibbles(idx, lanes)
+        self._packed = upload(host, self._device)
+        self._n = n
         self._d = max_distance
 
     def verify(self, gi: np.ndarray, gj: np.ndarray) -> np.ndarray:
         """bool mask: full-row Hamming(matrix[gi], matrix[gj]) <= d."""
         p = len(gi)
-        # Pow-of-two padding (the JAX package's compiled-shape family);
-        # padding pairs compare row 0 with itself (trivially within,
-        # sliced off).
-        padded = ROW_BLOCK
-        while padded < p:
-            padded <<= 1
-        gi_p = np.zeros(padded, dtype=np.int64)
-        gj_p = np.zeros(padded, dtype=np.int64)
-        gi_p[:p] = gi
-        gj_p[:p] = gj
-        a = self._packed.index_select(
-            0, torch.from_numpy(gi_p).to(self._device))
-        b = self._packed.index_select(
-            0, torch.from_numpy(gj_p).to(self._device))
-        out = rowwise_within_packed(a, b, self._d)
-        return out[:p, 0].cpu().numpy()
+        if p == 0:
+            return np.empty(0, dtype=bool)
+        lo = min(int(gi.min()), int(gj.min()))
+        hi = max(int(gi.max()), int(gj.max()))
+        if lo < 0 or hi >= self._n:
+            raise IndexError(f"candidate index out of range [0, {self._n}): "
+                             f"{lo}..{hi}")
+        host = staging((2, p), torch.int32, self._device)
+        pairs = host.numpy()
+        pairs[0] = gi
+        pairs[1] = gj
+        pairs_dev = upload(host, self._device)
+        out = rowwise_within_packed_indexed(self._packed, pairs_dev[0],
+                                            pairs_dev[1], self._d)
+        return host_array(start_host_copy(out[:, 0]))
 
 
 def _pairlist_device_wins(pairs: int, n: int, length: int,
@@ -428,8 +443,9 @@ def _pairlist_device_wins(pairs: int, n: int, length: int,
     dispatch = measured_dispatch_seconds()
     lanes = max(-(-length // 8), 1)
     host_cost = pairs * length / host_rate
+    # 8 B of int32 indices up (one copy a batch) + 1 B back + overhead.
     dev_cost = (-(-pairs // _PAIR_VERIFY_BATCH)) * dispatch \
-        + pairs * 9 / h2d            # 8 B indices up + 1 bit + overhead
+        + pairs * 9 / h2d
     if first_use:
         # One C pass packs (reads n*L, writes n*4*lanes) + the upload.
         dev_cost += (n * (length + 4 * lanes) / host_rate
@@ -453,8 +469,12 @@ def _launch_bucket_batches(matrix: np.ndarray,
                            encode_lut: "np.ndarray | None" = None,
                            exclude_cols: "Tuple[int, int] | None" = None):
     """Enqueue within-bucket all-pairs kernels, yielding
-    (members, future, device_bytes) as each batch is dispatched, so the
-    caller can bound total in-flight device memory.
+    (members, future, nbytes) as each batch is dispatched: on a CUDA
+    device the batch's pinned upload and its kernel are queued and the
+    future is the device tensor of its packed result, not yet computed.
+    ``nbytes`` (input plus packed output) lets the caller bound the work
+    in flight: device memory, and the pinned host staging of the same
+    sizes.
 
     ``exclude_cols=(s, e)``: ship only the COMPLEMENT of columns [s, e)
     — the pigeonhole segment the bucket already agrees on.  Members of a
@@ -471,8 +491,10 @@ def _launch_bucket_batches(matrix: np.ndarray,
         length -= ex_e - ex_s
     k = _buckets_per_call(size_class)
     devices = local_devices()
-    # The kernel keeps its match counts in registers: the device only
-    # pins the uint8 input [K,S,Lp] and the packed output [K,S,S/8].
+    # The kernel keeps its match counts in registers: a batch holds the
+    # uint8 input [K,S,Lp] and the packed output [K,S,S/8] on the device,
+    # and the same two in pinned host memory until its copies complete
+    # (the input's staging, then the drain's result buffer).
     nbytes = k * size_class * (length + size_class // 8)
     for call_index, start in enumerate(
             range(0, len(member_lists), k)):
@@ -499,24 +521,30 @@ def _launch_bucket_batches(matrix: np.ndarray,
             device=devices[call_index % len(devices)]), nbytes)
 
 
-# Total device bytes allowed in flight before the launch loop blocks on the
-# oldest result (this also bounds host staging copies).
+# Bytes of launched batches (``nbytes`` of _launch_bucket_batches) allowed
+# in flight before the launch loop resolves the oldest: this bounds the
+# queued work's device memory and its pinned host staging alike.
 MAX_INFLIGHT_BYTES = 1 << 29
 
 
 def _drain_bucket_batches(launched, matrix: "np.ndarray | None" = None):
     """Resolve launched bucket batches into global index pairs.
 
-    Items are ``(members, future, nbytes, seg)``; when ``seg=(s, e)`` is
-    set the batch was compared on the segment COMPLEMENT, and each
-    emitted pair is re-verified for exact equality on columns [s, e)
-    here (O(pairs * w) host bytes — emitted pairs are near-duplicates,
-    so this is noise next to the kernel).  The check makes the pair set
-    exact even when two different segment contents share a 64-bit bucket
-    hash."""
-    for members, future, _, seg in launched:
+    Items are ``(members, future, nbytes, seg)``.  Every item's
+    device-to-host copy starts before the first wait, as the JAX
+    package's drain starts every ``copy_to_host_async`` first
+    (``fastqdedup_tpu/ops/bucket.py:560-566``); each item is then read
+    only once its own copy has completed (:mod:`.transfer`).  When
+    ``seg=(s, e)`` is set the batch was compared on the segment
+    COMPLEMENT, and each emitted pair is re-verified for exact equality
+    on columns [s, e) here (O(pairs * w) host bytes — emitted pairs are
+    near-duplicates, so this is noise next to the kernel).  The check
+    makes the pair set exact even when two different segment contents
+    share a 64-bit bucket hash."""
+    copies = [start_host_copy(future) for _, future, _, _ in launched]
+    for (members, _, _, seg), copy in zip(launched, copies):
         s = members.shape[1]
-        within = np.unpackbits(future.cpu().numpy(), axis=-1,
+        within = np.unpackbits(host_array(copy), axis=-1,
                                bitorder="little")[..., :s]
         bb, ii, jj = np.nonzero(np.triu(within, k=1))
         gi = members[bb, ii]
@@ -636,9 +664,10 @@ def hamming_neighbor_pairs_bucketed(
         _mark("hash")
 
     def drain(down_to: int) -> None:
-        # Resolve oldest batches until in-flight bytes fall to the target;
-        # device compute and D2H of the still-queued batches overlap the
-        # host pair extraction here.
+        # Resolve oldest batches until in-flight bytes fall to the target.
+        # Their copies all start first; the batches still queued behind
+        # them go on computing on the device while the host extracts
+        # pairs here.
         nonlocal launched, inflight
         _mark("launch")
         while launched and inflight > down_to:
@@ -653,10 +682,12 @@ def hamming_neighbor_pairs_bucketed(
                                   np.maximum(gi, gj))
         _mark("drain")
 
-    # Enqueue bucket batches (async device dispatch), draining the oldest
-    # whenever total in-flight device memory would exceed the budget —
-    # inputs with many near-threshold buckets must not pile unbounded
-    # [K,S,S] outputs onto the device.
+    # Enqueue bucket batches (pinned non_blocking uploads and launches on
+    # the current stream: the host builds the next batch while the device
+    # copies and computes this one), draining the oldest whenever the
+    # bytes in flight would exceed the budget — inputs with many
+    # near-threshold buckets must not pile unbounded inputs and outputs
+    # onto the device or into pinned host memory.
     for seg_index, (seg_start, seg_end) in enumerate(seg_list):
         _t0[0] = _time.perf_counter()
         window = matrix[:, seg_start:seg_end]

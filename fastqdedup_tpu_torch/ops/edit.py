@@ -31,6 +31,7 @@ from .edit_kernels import (
     banded_within_edit_distance,
     banded_within_edit_distance_indexed,
 )
+from .transfer import host_array, staging, start_host_copy, upload
 
 # Candidate pairs per verification batch (the engine's loop).
 EDIT_VERIFY_BATCH = 1 << 16
@@ -123,10 +124,13 @@ def edit_verify_indexed(keys_dev: torch.Tensor, lens_dev: torch.Tensor,
 
     ``keys_dev`` [n, Lp] uint8 and ``lens_dev`` [n] int32 stay resident on
     the device; each batch sends its index pairs (8 bytes a pair, int64
-    cut to int32 once here) and the kernel gathers the rows itself.
-    With ``packed``, ``keys_dev`` is the [n, Lp/2] matrix of
-    :func:`pack_nibble_rows` and the rows are gathered and unpacked by
-    torch ops before the kernel (:func:`_edit_verify_gathered_packed`)."""
+    cut to int32 once here, both rows in one pinned ``non_blocking``
+    copy) and the kernel gathers the rows itself; the answers come back
+    through a pinned copy and are read after its event
+    (:mod:`.transfer`).  With ``packed``, ``keys_dev`` is the [n, Lp/2]
+    matrix of :func:`pack_nibble_rows` and the rows are gathered and
+    unpacked by torch ops before the kernel
+    (:func:`_edit_verify_gathered_packed`)."""
     p = len(cand_i)
     if p == 0:
         return np.empty(0, dtype=bool)
@@ -139,12 +143,15 @@ def edit_verify_indexed(keys_dev: torch.Tensor, lens_dev: torch.Tensor,
         raise IndexError(f"candidate index out of range [0, {n}): "
                          f"{lo}..{hi}")
     dev = keys_dev.device
-    ci = torch.from_numpy(np.asarray(cand_i, dtype=np.int32)).to(dev)
-    cj = torch.from_numpy(np.asarray(cand_j, dtype=np.int32)).to(dev)
+    host = staging((2, p), torch.int32, dev)
+    pairs = host.numpy()
+    pairs[0] = cand_i
+    pairs[1] = cand_j
+    pairs_dev = upload(host, dev)
     fn = _edit_verify_gathered_packed if packed \
         else banded_within_edit_distance_indexed
-    out = fn(keys_dev, lens_dev, ci, cj, max_distance)
-    return out[:, 0].cpu().numpy()
+    out = fn(keys_dev, lens_dev, pairs_dev[0], pairs_dev[1], max_distance)
+    return host_array(start_host_copy(out[:, 0]))
 
 
 def within_edit_distance_auto(a: np.ndarray, len_a: np.ndarray,

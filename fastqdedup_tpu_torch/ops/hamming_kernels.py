@@ -9,7 +9,10 @@ replace its three Pallas kernels; the CUDA source is ``csrc/hamming.cu``:
 * :func:`within_tile_packed` — all-pairs ``Hamming <= d`` between two row
   sets, uint8 ``[N, L]`` x ``[M, L]`` -> bitpacked uint8 ``[N, M/8]``;
 * :func:`rowwise_within_packed` — paired nibble-packed rows,
-  ``[P, lanes]`` x 2 -> bool ``[P, 1]``.
+  ``[P, lanes]`` x 2 -> bool ``[P, 1]``;
+  :func:`rowwise_within_packed_indexed` is the same over int32 index
+  pairs into one resident ``[n, lanes]`` matrix (the pair-list route's
+  entry; it counts under ``rowwise_within_packed``).
 
 The first two are one computation (a packed all-pairs tile) and share
 one entry point.  ``alphabet_pad`` alone picks its route: from 5 to 8
@@ -240,6 +243,45 @@ def rowwise_within_packed(a: torch.Tensor, b: torch.Tensor,
         status = lib.fqd_rowwise_within_packed(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), p, lanes,
             int(max_distance), stream)
+    check_status(name, status)
+    count_launch(LAUNCHES, name)
+    return out
+
+
+def rowwise_within_packed_indexed(packed: torch.Tensor, gi: torch.Tensor,
+                                  gj: torch.Tensor,
+                                  max_distance: int) -> torch.Tensor:
+    """bool [P, 1]: packed Hamming(packed[gi_p], packed[gj_p]) <=
+    max_distance.
+
+    ``packed``: int32 [n, lanes] resident nibble-packed rows; ``gi``/``gj``:
+    int32 [P] row indices in [0, n).  On the card the kernel reads the
+    rows through the indices (one launch, no gather; the caller checks
+    the range, as for ``edit_kernels.banded_within_edit_distance_indexed``);
+    on the CPU the rows are gathered with ``index_select``, which refuses
+    an index out of range, and the plain version runs.  The counterpart
+    of the JAX package's ``jnp.take`` + ``rowwise_within_packed`` in one
+    jitted program; counts under ``rowwise_within_packed``."""
+    if packed.device.type == "cpu":
+        return rowwise_within_plain(packed.index_select(0, gi),
+                                    packed.index_select(0, gj), max_distance)
+    name = "rowwise_within_packed"
+    check_cuda(name, packed, gi, gj)
+    if packed.dtype != torch.int32 or packed.dim() != 2 \
+            or gi.dtype != torch.int32 or gj.dtype != torch.int32 \
+            or gi.dim() != 1 or gi.shape != gj.shape:
+        raise ValueError(f"{name}: expected an int32 [n, lanes] matrix and "
+                         f"two int32 [P] index vectors")
+    p = gi.shape[0]
+    out = torch.empty((p, 1), dtype=torch.bool, device=packed.device)
+    if p == 0:
+        return out
+    lib = library()
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream(packed.device).cuda_stream
+        status = lib.fqd_rowwise_within_packed_indexed(
+            packed.data_ptr(), gi.data_ptr(), gj.data_ptr(), out.data_ptr(),
+            p, packed.shape[1], int(max_distance), stream)
     check_status(name, status)
     count_launch(LAUNCHES, name)
     return out

@@ -162,6 +162,9 @@ def library() -> ctypes.CDLL:
         lib.fqd_pairs_within_packed.restype = i
         lib.fqd_rowwise_within_packed.argtypes = [p, p, p, i64, i, i, p]
         lib.fqd_rowwise_within_packed.restype = i
+        lib.fqd_rowwise_within_packed_indexed.argtypes = [
+            p, p, p, p, i64, i, i, p]
+        lib.fqd_rowwise_within_packed_indexed.restype = i
         lib.fqd_banded_within_edit.argtypes = [
             p, p, p, p, p, p, p, i64, i, i, p]
         lib.fqd_banded_within_edit.restype = i

@@ -38,15 +38,16 @@ def _first_touch(dev) -> None:
 def _launch_hamming(dev, length: int, alphabet_size: int,
                     max_distance: int) -> None:
     """One launch each of the all-pairs kernel (as a tile and as a batch
-    of buckets) and of the pair-list kernel, at a small shape of this
-    key length."""
+    of buckets) and of the pair-list kernel's indexed entry (index pairs
+    into a packed matrix, as the pipeline launches it), at a small shape
+    of this key length."""
     import torch
 
     from .ops.encode import pack_nibbles
     from .ops.hamming_kernels import (
         _pad_dims,
         bucket_within_packed,
-        rowwise_within_packed,
+        rowwise_within_packed_indexed,
         within_tile_packed,
     )
 
@@ -62,7 +63,8 @@ def _launch_hamming(dev, length: int, alphabet_size: int,
     bucket_within_packed(batch, length, max_distance, a_pad)
     lanes = max(-(-length // 8), 1)
     packed = torch.from_numpy(pack_nibbles(rows, lanes).view(np.int32)).to(dev)
-    rowwise_within_packed(packed, packed, max_distance)
+    index = torch.arange(128, dtype=torch.int32, device=dev)
+    rowwise_within_packed_indexed(packed, index, index.flip(0), max_distance)
 
 
 def _launch_edit(dev, length: int, max_distance: int) -> None:

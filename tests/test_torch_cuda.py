@@ -452,3 +452,138 @@ def test_warmup_on_card_counts_apart(cuda_device, monkeypatch, capsys):
         assert set(thread.seconds) == {"context", "library", "launches"}
         assert warmup.prewarm_async(100, 5, 1, edit) is None
     assert {**hk.LAUNCHES, **ek.LAUNCHES} == before
+
+
+# --------------------------------------------------------------------- #
+# Pass 2's asynchronous transfers (ops/transfer.py)
+
+_BOTH_ROUTES = {"FASTQDEDUP_DISPATCH_S": "1e-9",
+                "FASTQDEDUP_H2D_RATE": "1e15",
+                "FASTQDEDUP_HOST_RATE": "1.0"}
+
+
+@pytest.mark.parametrize("lanes", [5, 13, 19, 27])
+@pytest.mark.parametrize("p", [1, 255, 257, 70_001])
+def test_rowwise_indexed_entry_matches_plain(cuda_device, p, lanes):
+    """The pair-list route's indexed entry against ``index_select`` +
+    ``rowwise_within_plain``: P on and off the block of 256, 5 to 27
+    lanes, neighbours, random and repeated indices, d = 0 to 3; one
+    launch a call, counted under ``rowwise_within_packed``."""
+    import chip_smoke
+
+    rng = np.random.default_rng(p + lanes)
+    packed, gi, gj = chip_smoke.rowwise_indexed_batch(rng, p, 3000, lanes)
+    for d in range(4):
+        want = hk.rowwise_within_plain(packed.index_select(0, gi),
+                                       packed.index_select(0, gj), d)
+        before = hk.LAUNCHES["rowwise_within_packed"]
+        got = hk.rowwise_within_packed_indexed(
+            packed.to(cuda_device), gi.to(cuda_device), gj.to(cuda_device), d)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        assert hk.LAUNCHES["rowwise_within_packed"] == before + 1
+
+
+def test_delayed_uploads_read_no_bucket_or_pair_list_result_early(
+        cuda_device, monkeypatch):
+    """Every upload of the bucket and pair-list routes queued behind about
+    10 ms of spinning while the host runs ahead, several bucket batches in
+    flight: the card's pairs equal the CPU device's exactly."""
+    import chip_smoke
+    from fastqdedup_tpu_torch.ops import bucket
+
+    for key, value in _BOTH_ROUTES.items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(bucket, "_buckets_per_call", lambda s: 2)
+    matrix = chip_smoke.delayed_matrix(np.random.default_rng(5))
+    monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", "cpu")
+    want = bucket.hamming_neighbor_pairs_bucketed(matrix, 5, 1)
+    monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", "cuda")
+    before = dict(hk.LAUNCHES)
+    undo = chip_smoke.delayed(bucket, "upload")
+    try:
+        got = bucket.hamming_neighbor_pairs_bucketed(matrix, 5, 1)
+    finally:
+        undo()
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    for name in ("bucket_within_packed", "rowwise_within_packed"):
+        assert hk.LAUNCHES[name] - before[name] >= 2
+
+
+def test_delayed_uploads_read_no_edit_answer_early(cuda_device):
+    """Edit verification batches with every index upload delayed: the
+    card's answers equal the CPU device's exactly."""
+    import chip_smoke
+    from fastqdedup_tpu_torch.ops import edit as edit_ops
+
+    rng = np.random.default_rng(6)
+    keys, lens, ci, cj = chip_smoke.indexed_edit_batch(rng, 1 << 15,
+                                                       torch.device("cpu"))
+    want = edit_ops.edit_verify_indexed(keys, lens, ci.numpy(), cj.numpy(), 1)
+    keys_dev, lens_dev = keys.to(cuda_device), lens.to(cuda_device)
+    undo = chip_smoke.delayed(edit_ops, "upload")
+    try:
+        got = [edit_ops.edit_verify_indexed(
+            keys_dev, lens_dev, ci.numpy()[s:s + 4096],
+            cj.numpy()[s:s + 4096], 1) for s in range(0, 1 << 15, 4096)]
+    finally:
+        undo()
+    np.testing.assert_array_equal(np.concatenate(got), want)
+
+
+def test_bucket_and_edit_routes_make_no_synchronizing_call(cuda_device,
+                                                           monkeypatch):
+    """Under ``torch.cuda.set_sync_debug_mode("warn")`` the bucket route,
+    the pair-list route and edit verification make no synchronizing call
+    in ops/bucket.py or ops/edit.py: every copy is pinned and
+    ``non_blocking``, every result read after its event."""
+    import chip_smoke
+    from fastqdedup_tpu_torch.ops import bucket
+    from fastqdedup_tpu_torch.ops import edit as edit_ops
+
+    for key, value in _BOTH_ROUTES.items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", "cuda")
+    matrix = chip_smoke.delayed_matrix(np.random.default_rng(7))
+    keys, lens, ci, cj = chip_smoke.indexed_edit_batch(
+        np.random.default_rng(8), 1 << 14, cuda_device)
+
+    def run():
+        bucket.hamming_neighbor_pairs_bucketed(matrix, 5, 1)
+        edit_ops.edit_verify_indexed(keys, lens, ci.cpu().numpy(),
+                                     cj.cpu().numpy(), 1)
+
+    sites = chip_smoke.sync_sites(run)
+    assert not [site for site in sites
+                if site.startswith(("ops/bucket.py", "ops/edit.py"))], sites
+
+
+def test_edit_key_upload_matches_cpu(cuda_device, monkeypatch):
+    """The edit route's key matrix, sent from the engine's thread while
+    candidates are generated, gives the CPU device's edges."""
+    from fastqdedup_tpu_torch import engine
+
+    rng = np.random.default_rng(9)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    mol = bases[rng.integers(0, 4, (300, 40))]
+    keys = {row.tobytes() for row in mol}
+    for row in mol:
+        pos = int(rng.integers(0, 40))
+        keys.add(row[:pos].tobytes() + row[pos + 1:].tobytes())
+        keys.add(row[:pos].tobytes() + b"A" + row[pos:].tobytes())
+    keys = sorted(keys, key=lambda k: (len(k), k))
+    lengths = np.array([len(k) for k in keys])
+    entries = []
+    for length in np.unique(lengths):
+        idx = np.flatnonzero(lengths == length).astype(np.int64)
+        entries.append((int(length), np.frombuffer(
+            b"".join(keys[i] for i in idx), dtype=np.uint8).reshape(
+                len(idx), length), idx))
+    edges = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", dev)
+        edges[dev] = engine._edit_edges_entries(entries, len(keys), 1)
+    for got, want in zip(edges["cuda"], edges["cpu"]):
+        np.testing.assert_array_equal(got, want)
+    assert len(edges["cpu"][0]) > 300

@@ -196,10 +196,21 @@ def test_kernel_bounds_count_bytes_and_operations():
     assert rowwise["bytes"] == 220_200_960
     assert rowwise["bound_by"] == "bytes"
     assert rowwise["bound_ms"] == pytest.approx(220_200_960 / 3.35e12 * 1e3)
+    # The indexed entry reads each distinct row of the resident matrix
+    # once, however many pairs gather it.
+    gi = torch.tensor([0, 2, 2, 7], dtype=torch.int32)
+    gj = torch.tensor([1, 2, 5, 0], dtype=torch.int32)
+    assert chip_smoke.distinct_rows(gi, gj) == 5
+    indexed = chip_smoke.kernel_bound(
+        chip_smoke.rowwise_cost(1 << 21, 13, 400_000))
+    assert indexed["bytes"] == 400_000 * 13 * 4 + (1 << 21) * 9 == 39_674_368
+    assert indexed["bound_by"] == "bytes"
     lengths = np.array([100, 100, 100, 0], dtype=np.int32)
     others = np.array([100, 101, 103, 1], dtype=np.int32)
-    banded = chip_smoke.banded_cost(lengths, others, 1, 112, True)
-    assert banded["bytes"] == 4 * (2 * 112 + 8 + 1 + 8)
+    paired = chip_smoke.banded_cost(lengths, others, 1, 112)
+    assert paired["bytes"] == 4 * (2 * 112 + 8 + 1)
+    banded = chip_smoke.banded_cost(lengths, others, 1, 112, 3)
+    assert banded["bytes"] == 3 * (112 + 4) + 4 * (8 + 1)
     assert banded["ops"] == 4 * (100 + 100 + 0) * 3  # the gap of 3 stops
 
 

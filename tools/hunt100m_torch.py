@@ -11,8 +11,10 @@ decompressed output (all of it, every repetition: the run stops at the
 first that differs, or that differs from the JAX package's pinned value
 where the input has one: ``default-10m`` / ``edit-10m`` at 10M reads,
 ``default`` / ``edit`` at 1M), fresh page mappings, CPU time, the peak
-host RSS so far, the card's peak allocated memory in the repetition and
-the kernel launches; at the end one JSON summary line with the median and
+host RSS so far, the card's peak allocated memory in the repetition, the
+pinned host memory that torch's caching host allocator holds (blocks
+rounded up to powers of two; it keeps every block it made) and the
+kernel launches; at the end one JSON summary line with the median and
 best of the steady repetitions (repetition 0 is the cold one and is left
 out of the median) and the host's memory (``/proc/meminfo``), to size a
 larger run by.
@@ -42,6 +44,17 @@ def mem_total_bytes() -> int:
             if row.startswith("MemTotal:"):
                 return int(row.split()[1]) * 1024
     return 0
+
+
+def pinned_host_bytes() -> dict:
+    """Bytes of pinned host blocks torch's caching host allocator holds
+    now and at its peak (empty when this torch does not report them)."""
+    import torch
+
+    stats = getattr(torch.cuda, "host_memory_stats", dict)()
+    return {key: stats[key] for key in ("allocated_bytes.current",
+                                        "allocated_bytes.peak")
+            if key in stats}
 
 
 def main() -> int:
@@ -103,6 +116,8 @@ def main() -> int:
                "device_peak_allocated_bytes":
                    torch.cuda.max_memory_allocated(dev)
                    if dev.type == "cuda" else None,
+               "pinned_host_bytes": pinned_host_bytes()
+                   if dev.type == "cuda" else None,
                "launches": chip_smoke.launch_counts()}
         rows.append(row)
         print(f"rep {r}: {wall:.1f}s  {n_reads / wall / 1e3:.0f}k reads/s"
@@ -135,6 +150,7 @@ def main() -> int:
         "peak_rss_bytes": max(row["peak_rss_bytes"] for row in rows),
         "device_peak_allocated_bytes": [
             row["device_peak_allocated_bytes"] for row in rows],
+        "pinned_host_bytes": [row["pinned_host_bytes"] for row in rows],
         "launches_per_rep": [row["launches"] for row in rows],
         "host_mem_total_bytes": mem_total_bytes(),
     })
