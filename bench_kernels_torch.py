@@ -23,7 +23,10 @@ peaks are an H100's (``chip_smoke.H100_BYTES_PER_S``,
 shapes; ``pct_speed_of_light`` is the bound's share of ``wall_s`` (the
 share of the peak of whichever resource bounds the kernel).  The
 pair-list kernel is timed through both entries (paired rows, and the
-pair-list route's int32 index pairs into a resident matrix).  Then, at
+pair-list route's int32 index pairs into a resident matrix), the
+indexed entry also on the route's largest batches at 1M reads, triu
+pairs bucket after bucket (``chip_smoke.ROUTE_BATCHES``: D, dense's;
+U, umi12's).  Then, at
 the shapes of ``PERF.md``'s kernel table, one line each for the library
 call beside the all-pairs kernel (``chip_smoke.onehot_product``: the JAX
 package's one-hot product, ``torch.bmm`` in fp16 for buckets and
@@ -31,8 +34,10 @@ package's one-hot product, ``torch.bmm`` in fp16 for buckets and
 kernel on the same rows, ``wall_s`` and ``wall_s_cold`` as above.
 
 ``--verify`` runs the JAX package's sweep (``bench_kernels.py
---verify``: 5 tile, 6 bucket, 3 pair-list and 2 edit geometries) and
-the edit kernel at 100 bp with one-base indels at d = 1, 2 and 3,
+--verify``: 5 tile, 6 bucket, 3 pair-list and 2 edit geometries), pair
+lists in the route's bucket order through the indexed entry (13, 2, 27
+and 5 lanes) and the edit kernel at 100 bp with one-base indels at d =
+1, 2 and 3,
 against numpy all-pairs comparisons and the scalar predicate
 ``fastqdedup_tpu_torch.distance.within_distance``, and prints ``{"verify":
 "ok", "device": ..., "geometries": n}``; a mismatch exits 1 and names the
@@ -123,6 +128,7 @@ def verify_kernels(dev: torch.device, reduced: bool = False) -> dict:
     wrapper launches its kernel on a CUDA ``dev`` and computes its plain
     version on the CPU.  ``reduced`` cuts the batch counts (buckets per
     size class, pairs per batch), never a geometry."""
+    import chip_smoke
     from fastqdedup_tpu_torch.distance import within_distance
     from fastqdedup_tpu_torch.ops import edit_kernels as ek
     from fastqdedup_tpu_torch.ops import hamming_kernels as hk
@@ -192,6 +198,30 @@ def verify_kernels(dev: torch.device, reduced: bool = False) -> dict:
                (rows != other).sum(axis=1) <= d,
                f"pair list P={rows_per_batch} L={length} lanes={lanes} "
                f"d={d}")
+        done("rowwise_within_packed")
+
+    # Pair lists as the route orders them (``chip_smoke.
+    # rowwise_bucket_batch``): every triu pair of each bucket, bucket
+    # after bucket, through the indexed entry, against a symbol-by-symbol
+    # count of the unpacked rows (pad nibbles included).  13 and 2 lanes
+    # are dense's and umi12's widths, 27 the umi3 configuration's, 5 a
+    # width that no input of the route has (groups of 4).
+    for lanes, size, buckets, d in ((13, 6, 400, 1), (2, 52, 12, 1),
+                                    (27, 5, 150, 2), (5, 17, 40, 0)):
+        buckets = max(buckets // 8, 1) if reduced else buckets
+        n = 3 * size * buckets
+        packed, gi, gj = chip_smoke.rowwise_bucket_batch(rng, n, lanes, size,
+                                                         buckets)
+        got = hk.rowwise_within_packed_indexed(packed.to(dev), gi.to(dev),
+                                               gj.to(dev), d)
+        shifts = 4 * np.arange(8, dtype=np.uint32)
+        symbols = ((packed.numpy().view(np.uint32)[:, :, None] >> shifts)
+                   & 0xF).reshape(n, -1)
+        gi_np, gj_np = gi.numpy(), gj.numpy()
+        _check(got.cpu().numpy().reshape(-1),
+               (symbols[gi_np] != symbols[gj_np]).sum(axis=1) <= d,
+               f"pair list, triu pairs of {buckets} buckets of {size} into "
+               f"n={n} rows lanes={lanes} d={d}")
         done("rowwise_within_packed")
 
     # Edit kernel against the scalar predicate: 24 bp rows, half of them
@@ -340,6 +370,21 @@ def time_kernels(dev: torch.device) -> None:
         chip_smoke.rowwise_cost(p, lanes, chip_smoke.distinct_rows(gi, gj)),
         p, flush))
     del packed
+    # The route's largest batches at 1M reads (``chip_smoke.
+    # ROUTE_BATCHES``): triu pairs of dense's 5,581 buckets of 6 and of
+    # umi12's 260 buckets of 52, bucket after bucket.
+    for label, n, lanes, size, buckets in chip_smoke.ROUTE_BATCHES:
+        packed, gi, gj = (t.to(dev) for t in chip_smoke.rowwise_bucket_batch(
+            rng, n, lanes, size, buckets))
+        chip_smoke.emit(kernel_line(
+            f"rowwise_within_packed_indexed {label}: P={len(gi)} (triu "
+            f"pairs of {buckets} buckets of {size}) lanes={lanes} into "
+            f"n={n} rows",
+            lambda: hk.rowwise_within_packed_indexed(packed, gi, gj, 1),
+            chip_smoke.rowwise_cost(len(gi), lanes,
+                                    chip_smoke.distinct_rows(gi, gj)),
+            len(gi), flush))
+        del packed, gi, gj
 
     # Buckets: every size class at its batch size, L = READ_LEN, d=1.
     rng = np.random.default_rng(2)

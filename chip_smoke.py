@@ -24,7 +24,10 @@ Phases, each printing one JSON line to stdout:
    6 are timed; ``edit_verify_indexed(..., packed=True)`` on the
    nibble-packed key matrix against ``packed=False``; for the pair-list
    kernel paired rows and its indexed entry, the pair-list route's
-   launch, at P off the block with 5, 13, 19 and 27 lanes).  A timed
+   launch, at P off the block with 5, 13, 19 and 27 lanes, and the
+   route's largest batches at 1M reads, bucket after bucket
+   (``ROUTE_BATCHES``: D, dense's, and U, umi12's, both timed, each
+   beside the floor of an empty kernel under the same replays).  A timed
    line carries the kernel's time from
    CUDA-graph replays (``ms``, no host gaps; inputs L2-warm), the time of
    one launch between two events (``ms_one_launch``, which includes the
@@ -36,11 +39,13 @@ Phases, each printing one JSON line to stdout:
    same way (match counts only);
    ``verify`` — every kernel against host oracles that share no code with
    the port's plain versions (numpy all-pairs comparisons, the scalar
-   ``distance.within_distance``) at the 19 geometries of
+   ``distance.within_distance``) at the 23 geometries of
    ``bench_kernels_torch.verify_kernels`` (the same function as
    ``python3 bench_kernels_torch.py --verify``): tiles at L=151 d=3 (Lp
    160) and at alphabet 12, buckets of every size class at L=100 d=1 and
-   L=151 d=2, pair lists of 13, 5 and 19 lanes, the edit kernel at 24 bp
+   L=151 d=2, pair lists of 13, 5 and 19 lanes and in the route's bucket
+   order through the indexed entry at 13, 2, 27 and 5 lanes, the edit
+   kernel at 24 bp
    and on 100 bp pairs with indels at d = 1 to 3;
 4. ``warmup`` — ``fastqdedup_tpu_torch.warmup.warmup()`` once, its steps
    printed; its launches must count apart from real work;
@@ -107,13 +112,20 @@ line.  Without CUDA, or without the package beside this script, it exits
 2 and prints no result.  ``--distributed-worker`` and
 ``--first-run-worker`` are child processes started by the script itself.
 
-Eight shorter runs for measurements, none of which prints a result
+Ten shorter runs for measurements, none of which prints a result
 line: ``python3 chip_smoke.py --kernels`` stops after phase 3, and
 ``python3 chip_smoke.py --repeats N default umi12 dense`` runs each named
 input once and then N more times (sha256 checked every time) and prints
 the seconds of every run with their median;
 ``python3 chip_smoke.py --phases`` builds the all-pairs kernel with its
 phase timestamps compiled in and prints where a block spends a tile;
+``python3 chip_smoke.py --rowwise-variants [SOURCE...]`` builds the
+pair-list kernel from ``csrc/hamming.cu`` and from each named source
+(another tree's ``hamming.cu``) and times them in turns on random and
+bucket-ordered pair lists beside the empty kernel's floor; ``python3 chip_smoke.py --pair-list-batches
+dense umi12`` runs each named input once and prints every launch of the
+pair-list route (pairs, resident rows, lanes, distinct rows, bucket
+size and count);
 ``python3 chip_smoke.py --edit-variants`` builds the edit kernel's
 measurement variants (parts of it removed, the band scan in place of the
 diagonals, other scan widths) and times them beside the library's build;
@@ -763,6 +775,62 @@ def rowwise_indexed_batch(rng, p: int, n: int, lanes: int):
             torch.from_numpy(gj.astype(np.int32)))
 
 
+def bucket_members(rng, n: int, size: int, buckets: int) -> np.ndarray:
+    """int64 [buckets, size]: member lists of ``buckets`` buckets of
+    ``size`` keys, distinct rows of a matrix of ``n`` drawn at random."""
+    return rng.choice(n, size * buckets, replace=False).reshape(buckets,
+                                                                size)
+
+
+def rowwise_bucket_batch(rng, n: int, lanes: int, size: int, buckets: int):
+    """One batch of the pair-list route as it reaches the card: an int32
+    [n, lanes] nibble-packed matrix of keys of ``8 * lanes - 4`` symbols
+    (0-3; the last 4 nibbles pad, 0xF) and, as int32 index pairs, every
+    triu pair of each bucket's member list, one bucket after the next,
+    in ``ops.bucket._small_bucket_candidates``' order.  The members
+    (``bucket_members``, drawn first) of a bucket are near-duplicates:
+    one key with 0-2 symbols redrawn each, so answers at d = 1 are
+    mixed."""
+    from fastqdedup_tpu_torch.ops.encode import pack_nibbles
+
+    members = bucket_members(rng, n, size, buckets)
+    length = max(8 * lanes - 4, 1)
+    symbols = rng.integers(0, 4, (n, length), dtype=np.uint8)
+    symbols[members] = symbols[members[:, :1]]
+    for _ in range(2):
+        sel = rng.random((buckets, size)) < 0.5
+        symbols[members[sel], rng.integers(0, length, int(sel.sum()))] = \
+            rng.integers(0, 4, int(sel.sum()), dtype=np.uint8)
+    ii, jj = np.triu_indices(size, k=1)
+    return (torch.from_numpy(pack_nibbles(symbols, lanes).view(np.int32)),
+            torch.from_numpy(members[:, ii].ravel().astype(np.int32)),
+            torch.from_numpy(members[:, jj].ravel().astype(np.int32)))
+
+
+# The pair-list route's largest batches at 1M reads (label, n, lanes,
+# bucket size, buckets): dense's (100 bp keys, 342,900 resident, buckets
+# of 6) and umi12's (12-base keys, 210,438 resident, buckets of 52).
+ROUTE_BATCHES = (("D: dense's largest batch", 342_900, 13, 6, 5_581),
+                 ("U: umi12's largest batch", 210_438, 2, 52, 260))
+
+
+def empty_ms() -> float:
+    """Median ``graph_ms`` of an empty kernel of one block of 128 threads:
+    the fixed cost of one launch node, the floor under the shortest
+    kernels' times."""
+    from fastqdedup_tpu_torch.ops import kernel_lib
+
+    lib = kernel_lib.library()
+
+    def launch():
+        status = lib.fqd_empty(1, 128,
+                               torch.cuda.current_stream().cuda_stream)
+        if status != 0:
+            fail(f"empty kernel launch returned CUDA error {status}")
+
+    return statistics.median(graph_ms(launch))
+
+
 def edit_pairs(rng, p: int, d: int, l_pad: int = 112, gap=None):
     """uint8 [P, Lp] read pairs as edit verification meets them: 100 bp
     reads of lengths 99/100/101, partners with substitutions and a share
@@ -883,7 +951,7 @@ def check_kernels(dev) -> dict:
                 line["library_timing"] = "CUDA-graph replays of 20 calls, " \
                     "L2-warm, as ms"
             if extra is not None:
-                line.update(extra())
+                line.update(extra(line))
         emit(line)
         if err != 0.0:
             fail(f"{name} {case}: kernel disagrees with its plain version")
@@ -971,7 +1039,7 @@ def check_kernels(dev) -> dict:
                lambda: hk.pairs_within_plain(pa[None], pb[None], length,
                                              d, a_pad), main,
                cost=pairs_within_cost(1, n, m, l_pad, length, a_pad, False),
-               extra=lambda: {"ms_wrapper": statistics.median(graph_ms(
+               extra=lambda line: {"ms_wrapper": statistics.median(graph_ms(
                    lambda: hk.within_tile_packed(a, b, alphabet, d)))},
                library=lambda: onehot_product(pa[None], pb[None], a_pad,
                                               True))
@@ -1016,6 +1084,33 @@ def check_kernels(dev) -> dict:
                lambda: hk.rowwise_within_packed_indexed(packed, gi, gj, d),
                gathered_plain, main,
                cost=rowwise_cost(p, lanes, distinct_rows(gi, gj)))
+    # The route's own batches, bucket-ordered (``ROUTE_BATCHES``: D and
+    # U), timed beside the main case; their bounds are below a
+    # microsecond, so each line also carries the floor under it: an
+    # empty kernel of one block under the same replays.
+    floor = empty_ms()
+    emit({"phase": "kernel", "name": "empty", "case": "1 block of 128 "
+          "threads, CUDA-graph replays of 20 launches", "ms": floor})
+    d = 1
+    for label, n, lanes, size, buckets in ROUTE_BATCHES:
+        packed, gi, gj = (t.to(dev) for t in rowwise_bucket_batch(
+            rng, n, lanes, size, buckets))
+        got = hk.rowwise_within_packed_indexed(packed, gi, gj, d)
+        torch.cuda.synchronize()
+
+        def gathered_plain():
+            return hk.rowwise_within_plain(packed.index_select(0, gi),
+                                           packed.index_select(0, gj), d)
+
+        record(name, f"indexed, {label}: P={len(gi)} (triu pairs of "
+               f"{buckets} buckets of {size}) into n={n} rows "
+               f"lanes={lanes} d={d}", got, gathered_plain(),
+               lambda: hk.rowwise_within_packed_indexed(packed, gi, gj, d),
+               gathered_plain, False, True,
+               cost=rowwise_cost(len(gi), lanes, distinct_rows(gi, gj)),
+               extra=lambda line: {
+                   "floor_ms": floor, "floor_share": floor / line["ms"],
+                   "ms_above_floor": line["ms"] - floor})
 
     # Kernel 4: one verification batch of the edit path (2^16 pairs of
     # 100 bp keys padded to 112) at d = 1, 2 and 6, timed, and d = 0 and
@@ -1881,6 +1976,183 @@ def run_edit_variants(dev) -> int:
     return 0
 
 
+def ptxas_lines(log: str, kernel: str) -> list:
+    """What ``nvcc -Xptxas -v`` says of each kernel whose mangled name
+    holds ``kernel``: its registers, stack and spills."""
+    rows, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif name and kernel in name and ("registers" in line
+                                          or "spill" in line):
+            rows.append(f"{name}: {line.strip()}")
+    return rows
+
+
+def run_rowwise_variants(dev, other_sources) -> int:
+    """The pair-list kernel's indexed entry against other trees' builds of
+    it, in turns: builds ``csrc/hamming.cu`` and each file of
+    ``other_sources`` (another tree's ``hamming.cu``, its own directory
+    for includes) into a library of its own, all in parallel.  Then
+    times the indexed entry of each at the main case (2^21 pairs into
+    400k rows, 13 lanes) and at ``ROUTE_BATCHES``, and the paired entry
+    at 2^21 pairs of 13 lanes, all libraries in turn and then in reverse
+    (CUDA-graph replays, L2-warm), beside the empty kernel's floor.
+    Every build must equal the plain version."""
+    import ctypes
+
+    from fastqdedup_tpu_torch.ops import hamming_kernels as hk
+    from fastqdedup_tpu_torch.ops import kernel_lib
+
+    build = os.path.dirname(kernel_lib.LIB_PATH)
+    os.makedirs(build, exist_ok=True)
+    sources = [("library build", os.path.join(
+        HERE, "fastqdedup_tpu_torch", "csrc", "hamming.cu"))]
+    sources += [(f"other tree: {path}", os.path.abspath(path))
+                for path in other_sources]
+    paths = [os.path.join(build, f"libfqd_rowwise_variant{n}.so")
+             for n in range(len(sources))]
+    procs = [subprocess.Popen(
+        [kernel_lib._nvcc(), *kernel_lib._ARCH, "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-shared", "-o", path,
+         src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for (_, src), path in zip(sources, paths)]
+    libs = []
+    for (label, _), proc, path in zip(sources, procs, paths):
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc {label} failed:\n{log}")
+        emit({"phase": "rowwise-variants", "variant": label,
+              "ptxas": ptxas_lines(log, "rowwise")})
+        lib = ctypes.CDLL(path)
+        ptr, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.fqd_rowwise_within_packed.argtypes = [ptr, ptr, ptr, i64, i, i,
+                                                  ptr]
+        lib.fqd_rowwise_within_packed_indexed.argtypes = [
+            ptr, ptr, ptr, ptr, i64, i, i, ptr]
+        libs.append(lib)
+
+    rng = np.random.default_rng(2024)
+    d = 1
+    cases = [("T: indexed, P=2097152 into n=400000 rows lanes=13",
+              rowwise_indexed_batch(rng, 1 << 21, 400_000, 13))]
+    for label, n, lanes, size, buckets in ROUTE_BATCHES:
+        batch = rowwise_bucket_batch(rng, n, lanes, size, buckets)
+        cases.append((f"{label}: indexed, P={len(batch[1])} into n={n} "
+                      f"rows lanes={lanes}", batch))
+    cases.append(("paired: P=2097152 lanes=13",
+                  rowwise_pair(rng, 1 << 21, 13)))
+    emit({"phase": "rowwise-variants", "case": "empty kernel, 1 block",
+          "ms": empty_ms()})
+    for case, batch in cases:
+        batch = [t.to(dev) for t in batch]
+        paired = len(batch) == 2
+        p = batch[0].shape[0] if paired else batch[1].shape[0]
+        lanes = batch[0].shape[1]
+        out = torch.empty((p, 1), dtype=torch.bool, device=dev)
+        if paired:
+            packed = gi = gj = None
+            want = hk.rowwise_within_plain(batch[0], batch[1], d)
+        else:
+            packed, gi, gj = batch
+            want = hk.rowwise_within_plain(packed.index_select(0, gi),
+                                           packed.index_select(0, gj), d)
+
+        def launch(lib):
+            stream = torch.cuda.current_stream().cuda_stream
+            if paired:
+                status = lib.fqd_rowwise_within_packed(
+                    batch[0].data_ptr(), batch[1].data_ptr(),
+                    out.data_ptr(), p, lanes, d, stream)
+            else:
+                status = lib.fqd_rowwise_within_packed_indexed(
+                    packed.data_ptr(), gi.data_ptr(), gj.data_ptr(),
+                    out.data_ptr(), p, lanes, d, stream)
+            if status != 0:
+                fail(f"variant launch returned CUDA error {status}")
+
+        for (label, _), lib in zip(sources, libs):
+            out.zero_()
+            launch(lib)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                fail(f"{label}, {case}: disagrees with the plain version")
+        forth = [statistics.median(graph_ms(lambda: launch(lib)))
+                 for lib in libs]
+        back = [statistics.median(graph_ms(lambda: launch(lib)))
+                for lib in reversed(libs)][::-1]
+        cost = rowwise_cost(p, lanes) if paired else \
+            rowwise_cost(p, lanes, distinct_rows(gi, gj))
+        bound = kernel_bound(cost)
+        for (label, _), ms in zip(sources, zip(forth, back)):
+            emit({"phase": "rowwise-variants", "case": case,
+                  "variant": label, "ms_turns": list(ms),
+                  "bound_ms": bound["bound_ms"], "bytes": bound["bytes"],
+                  "share_of_bound": bound["bound_ms"] / statistics.median(
+                      ms)})
+        del batch, out, want, packed, gi, gj
+    return 0
+
+
+def run_pair_list_batches(names) -> int:
+    """The pair-list route's launches in one run of each named input on
+    the card (sha256 checked): per launch of the indexed entry its pairs,
+    the resident rows and lanes of its matrix, the distinct rows its
+    pairs read, and the size and count of the buckets whose triu pairs
+    it verifies (one size a batch, ``ops.bucket._small_bucket_candidates``);
+    then per input the launches, the pairs, the bucket sizes and the
+    largest batch.  Host-side counts: no time is measured."""
+    from fastqdedup_tpu_torch.ops import bucket
+
+    os.environ["FASTQDEDUP_TORCH_DEVICE"] = "cuda"
+    workdir = tempfile.mkdtemp(
+        prefix="batches_", dir=os.path.join(HERE, "fastqdedup_tpu_torch",
+                                            "build"))
+    inner_candidates = bucket._small_bucket_candidates
+    inner_launch = bucket.rowwise_within_packed_indexed
+    try:
+        files = generate_files(workdir, files_of(names))
+        for name in names:
+            batches, launches = [], []
+
+            def candidates(order, starts, selected, size, *args, **kwargs):
+                for gi, gj in inner_candidates(order, starts, selected,
+                                               size, *args, **kwargs):
+                    batches.append((int(size), len(gi) * 2 //
+                                    (size * (size - 1))))
+                    yield gi, gj
+
+            def launch(packed, gi, gj, d):
+                launches.append({
+                    "pairs": int(gi.shape[0]), "rows": int(packed.shape[0]),
+                    "lanes": int(packed.shape[1]),
+                    "distinct_rows": distinct_rows(gi, gj),
+                    "bucket_size": batches[-1][0],
+                    "buckets": batches[-1][1]})
+                return inner_launch(packed, gi, gj, d)
+
+            bucket._small_bucket_candidates = candidates
+            bucket.rowwise_within_packed_indexed = launch
+            try:
+                run_pipeline(workdir, name, files, name,
+                             phase="pair-list-batches")
+            finally:
+                bucket._small_bucket_candidates = inner_candidates
+                bucket.rowwise_within_packed_indexed = inner_launch
+            largest = max(launches, key=lambda x: x["pairs"], default=None)
+            sizes = [x["bucket_size"] for x in launches]
+            emit({"phase": "pair-list-batches", "input": name,
+                  "launches": len(launches),
+                  "pairs": sum(x["pairs"] for x in launches),
+                  "rows": sorted({x["rows"] for x in launches}),
+                  "lanes": sorted({x["lanes"] for x in launches}),
+                  "bucket_sizes": [min(sizes), max(sizes)] if sizes else [],
+                  "largest": largest, "every_launch": launches})
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return 0
+
+
 def run_repeats(repeats: int, names) -> int:
     """Each named input once, then ``repeats`` more times in this process;
     one line per input with every run's seconds and the repeats' median.
@@ -2467,6 +2739,10 @@ def main(argv) -> int:
         return run_phases(dev)
     if argv == ["--edit-variants"]:
         return run_edit_variants(dev)
+    if argv[:1] == ["--pair-list-batches"]:
+        return run_pair_list_batches(argv[1:])
+    if argv[:1] == ["--rowwise-variants"]:
+        return run_rowwise_variants(dev, argv[1:])
     summary = check_kernels(dev)
     if argv == ["--kernels"]:
         return 0

@@ -58,14 +58,42 @@
 //
 // * rowwise_within_kernel replaces rowwise_within_packed: per pair of
 //   nibble-packed rows (8 symbols per 32-bit lane), XOR, collapse each
-//   nibble to one bit, popcount, sum over lanes, test <= d.
+//   nibble to one bit, popcount, sum over lanes, test <= d.  One thread
+//   per pair reads its two rows from the row-major [P, lanes] layout.
 //   Bound on the H100: device-memory bytes (8 B read per lane per pair,
-//   about 6 instructions per lane).  One thread per pair reads its row
-//   directly from the row-major [P, lanes] layout; no transpose.
-//   rowwise_within_indexed_kernel is the same body over int32 index
-//   pairs into one resident [n, lanes] matrix (the pair-list route's
-//   entry): 8 B of indices a pair in place of two gathered rows, and no
-//   gather launches before it.
+//   about 6 instructions per lane).
+//
+// * rowwise_within_indexed_kernel is the same function over int32 index
+//   pairs into one resident [n, lanes] matrix: the pair-list route's
+//   launch, where the JAX package gathers with jnp.take and verifies in
+//   one jitted program.  Its bound counts 8 B of indices a pair and each
+//   distinct row once; the kernel gathers two rows a pair, and at the
+//   route's shapes the rows sit in L2 and are read again and again (a
+//   row of a bucket of s keys by s - 1 pairs).  What holds it below the
+//   bound on the H100 (PERF.md): on pairs that share no rows, the
+//   sectors its gathers read from L2 (a 52-byte row spans 2.5 sectors of
+//   32 B on average, two rows a pair); on the route's batches of 10^4 to
+//   10^5 pairs, a launch's fixed cost and one round trip for the indices
+//   before the rows' loads can start.  The design:
+//   - a warp takes a span of 32 consecutive pairs (128 at 2 lanes, four
+//     a thread) and loads their indices coalesced;
+//   - a group of threads shares a pair (rowwise.cuh: group_size), so one
+//     load instruction asks for 16 to 32 contiguous bytes of each of
+//     several rows, where one thread a pair asked for one word of 32
+//     rows; at 2 lanes a thread is a pair and reads a row in one 8-byte
+//     load;
+//   - a thread issues the loads of both rows of up to 16 steps, a pair
+//     each, before it folds any of them, one lane of each row a round,
+//     the width at run time (an instance of 13 lanes with both rounds'
+//     loads in flight was 8% slower on random pairs and 4% faster on
+//     dense's batch: PERF.md);
+//   - a transposed reduction (g - 1 shuffles for g pairs) leaves thread
+//     t with pair t's count, so a warp writes 32 consecutive bytes;
+//   - rows read again by the pairs of a span come from L1.  Staging each
+//     block's distinct rows in shared memory behind a hash table was
+//     slower at every shape measured (atomics on one slot serialize where
+//     many pairs share a row), and so was taking a step's a row from the
+//     step before in registers (PERF.md).
 //
 // Entry points take raw device pointers and PyTorch's current stream,
 // allocate nothing, do not synchronise, and return the first CUDA error.
@@ -78,6 +106,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "rowwise.cuh"
 
 #ifdef FQD_PHASE_TIMES
 constexpr int kTimedBlocks = 512, kTimedStages = 8, kTimedMarks = 8;
@@ -596,11 +626,7 @@ __device__ __forceinline__ int nibble_mismatches(
     int lanes) {
   int mismatches = 0;
   for (int k = 0; k < lanes; ++k) {
-    // A non-zero XOR nibble collapses to exactly one set bit.
-    uint32_t x = ra[k] ^ rb[k];
-    x |= x >> 2;
-    x |= x >> 1;
-    mismatches += __popc(x & 0x11111111u);
+    mismatches += fqd_rowwise::lane_mismatches(ra[k] ^ rb[k]);
   }
   return mismatches;
 }
@@ -617,21 +643,135 @@ __global__ void rowwise_within_kernel(const uint32_t* __restrict__ a,
   out[i] = mismatches <= max_distance ? 1 : 0;
 }
 
-// The same answer for pair i of rows gi[i] and gj[i] of one resident
-// packed matrix: the gather of the JAX package's jitted jnp.take happens
-// in the row loads (fastqdedup_tpu/ops/bucket.py:423-427), so a batch is
-// one launch over 8 bytes of indices a pair.
-__global__ void rowwise_within_indexed_kernel(
-    const uint32_t* __restrict__ packed, const int* __restrict__ gi,
-    const int* __restrict__ gj, uint8_t* __restrict__ out, long long p,
-    int lanes, int max_distance) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p) return;
-  const int mismatches = nibble_mismatches(
-      packed + (long long)gi[i] * lanes, packed + (long long)gj[i] * lanes,
-      lanes);
-  out[i] = mismatches <= max_distance ? 1 : 0;
+// ---- indexed pair lists (the pair-list route) ------------------------- //
+
+namespace rw = fqd_rowwise;
+
+constexpr int kRowwiseThreads = 128;  // four warps, a span of pairs each
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+// Steps whose row loads a thread issues before it folds the first.
+constexpr int kStepsInFlight = 16;
+// Pairs a thread takes at 2 lanes, where a thread is a group.
+constexpr int kTwoLaneRounds = 4;
+
+// The answer for pair i of rows gi[i] and gj[i] of one resident packed
+// matrix.  A warp takes the span of kSpan pairs from `base`, G threads a
+// pair (rowwise.cuh); TWO_LANES: rows of two lanes, 8-byte aligned, one
+// thread a pair and kTwoLaneRounds spans a warp.  Every thread of a warp
+// with pairs runs to the end, as the shuffles need the whole warp.  A
+// pair past the end reads row 0, which exists: some real pair indexes
+// the matrix.
+template <int G, bool TWO_LANES>
+__global__ void __launch_bounds__(kRowwiseThreads)
+rowwise_within_indexed_kernel(const uint32_t* __restrict__ packed,
+                              const int* __restrict__ gi,
+                              const int* __restrict__ gj,
+                              uint8_t* __restrict__ out, long long p,
+                              int lanes, int max_distance) {
+  static_assert(G == 1 || !TWO_LANES, "two lanes are one thread's");
+  constexpr int kRounds = TWO_LANES ? kTwoLaneRounds : 1;
+  const int t = threadIdx.x % rw::kSpan;
+  const long long base =
+      ((long long)blockIdx.x * kRowwiseThreads + threadIdx.x - t) * kRounds;
+  if (base >= p) return;  // a whole warp
+
+  if constexpr (TWO_LANES) {
+    // One 8-byte load a row, pairs t, t + 32, ... of the span, every load
+    // in flight before the first fold.  The 32 pairs of one load
+    // instruction are consecutive, so their shared a rows are one
+    // request.
+    int ia[kRounds], ib[kRounds];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const long long i = base + rw::kSpan * r + t;
+      ia[r] = i < p ? gi[i] : 0;
+      ib[r] = i < p ? gj[i] : 0;
+    }
+    uint2 a[kRounds], b[kRounds];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      a[r] = __ldg((const uint2*)packed + ia[r]);
+      b[r] = __ldg((const uint2*)packed + ib[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const long long i = base + rw::kSpan * r + t;
+      const int count = rw::lane_mismatches(a[r].x ^ b[r].x) +
+                        rw::lane_mismatches(a[r].y ^ b[r].y);
+      if (i < p) out[i] = rw::within(count, max_distance) ? 1 : 0;
+    }
+  } else {
+    constexpr int kChunk = G < kStepsInFlight ? G : kStepsInFlight;
+    const bool mine = base + t < p;
+    const int own_i = mine ? gi[base + t] : 0;
+    const int own_j = mine ? gj[base + t] : 0;
+    const int group = t / G, rank = t % G;
+    int count[G];
+#pragma unroll
+    for (int s = 0; s < G; ++s) count[s] = 0;
+#pragma unroll
+    for (int s0 = 0; s0 < G; s0 += kChunk) {
+      // The rows of the group's pairs at steps s0 .. s0 + kChunk - 1,
+      // from the threads that loaded their indices.
+      int ia[kChunk], ib[kChunk];
+#pragma unroll
+      for (int s = 0; s < kChunk; ++s) {
+        const int q = rw::pair_of(group, s0 + s, G);
+        ia[s] = G == 1 ? own_i : __shfl_sync(kFullMask, own_i, q);
+        ib[s] = G == 1 ? own_j : __shfl_sync(kFullMask, own_j, q);
+      }
+      // One lane of each row of the chunk's steps at a time, the loads
+      // of both rows of every step in flight before the first fold.
+#pragma unroll 1
+      for (int k = 0; k < rw::loads_per_row(lanes, G); ++k) {
+        const int lane = rw::lane_of(rank, k, G);
+        const bool real = lane < lanes;
+        uint32_t wa[kChunk], wb[kChunk];
+#pragma unroll
+        for (int s = 0; s < kChunk; ++s) {
+          wa[s] = real ? __ldg(packed + (long long)ia[s] * lanes + lane) : 0u;
+          wb[s] = real ? __ldg(packed + (long long)ib[s] * lanes + lane) : 0u;
+        }
+#pragma unroll
+        for (int s = 0; s < kChunk; ++s) {
+          count[s0 + s] += rw::lane_mismatches(wa[s] ^ wb[s]);
+        }
+      }
+    }
+    // Thread t ends with the count of pair t of the span.
+#pragma unroll
+    for (int half = G / 2; half >= 1; half /= 2) {
+      const int mask = rw::reduce_mask(rank, half);
+#pragma unroll
+      for (int j = 0; j < half; ++j) {
+        const int sent = __shfl_xor_sync(
+            kFullMask, rw::reduce_send(count[j], count[j + half], mask),
+            half);
+        count[j] = rw::reduce_keep(count[j], count[j + half], mask) + sent;
+      }
+    }
+    if (mine) out[base + t] = rw::within(count[0], max_distance) ? 1 : 0;
+  }
 }
+
+template <int G, bool TWO_LANES = false>
+void launch_indexed(const void* packed, const void* gi, const void* gj,
+                    void* out, long long p, int lanes, int max_distance,
+                    cudaStream_t stream) {
+  constexpr long long kBlockPairs =
+      (long long)kRowwiseThreads * (TWO_LANES ? kTwoLaneRounds : 1);
+  const long long blocks = (p + kBlockPairs - 1) / kBlockPairs;
+  if (blocks > 0) {
+    rowwise_within_indexed_kernel<G, TWO_LANES>
+        <<<(unsigned int)blocks, kRowwiseThreads, 0, stream>>>(
+            (const uint32_t*)packed, (const int*)gi, (const int*)gj,
+            (uint8_t*)out, p, lanes, max_distance);
+  }
+}
+
+// Nothing: the fixed cost of one launch, the floor under the shortest
+// kernels' times (chip_smoke.py).
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -716,19 +856,35 @@ int fqd_rowwise_within_packed(const void* a, const void* b, void* out,
 }
 
 // packed: 32-bit lanes [n, lanes], row-major; gi, gj: int32 [p] row
-// indices in [0, n) (the caller checks); out: bool [p].
+// indices in [0, n) (the caller checks); out: bool [p].  Any width:
+// 2 lanes in 8-byte aligned rows have an instance of their own, every
+// other width the instance of its group size.
 int fqd_rowwise_within_packed_indexed(const void* packed, const void* gi,
                                       const void* gj, void* out, long long p,
                                       int lanes, int max_distance,
                                       void* stream) {
-  const int threads = 256;
-  const unsigned int blocks = (unsigned int)((p + threads - 1) / threads);
-  if (blocks > 0) {
-    rowwise_within_indexed_kernel<<<blocks, threads, 0,
-                                    (cudaStream_t)stream>>>(
-        (const uint32_t*)packed, (const int*)gi, (const int*)gj,
-        (uint8_t*)out, p, lanes, max_distance);
+  if (p > 0x7FFFFFFFLL * kRowwiseThreads) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (lanes == 2 && (uintptr_t)packed % 8 == 0) {
+    launch_indexed<1, true>(packed, gi, gj, out, p, lanes, max_distance, s);
+    return (int)cudaGetLastError();
   }
+  const int g = rw::group_size(lanes);
+  if (g == 1) {
+    launch_indexed<1>(packed, gi, gj, out, p, lanes, max_distance, s);
+  } else if (g == 4) {
+    launch_indexed<4>(packed, gi, gj, out, p, lanes, max_distance, s);
+  } else if (g == 8) {
+    launch_indexed<8>(packed, gi, gj, out, p, lanes, max_distance, s);
+  } else {
+    launch_indexed<32>(packed, gi, gj, out, p, lanes, max_distance, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One launch of an empty kernel of `blocks` blocks of `threads` threads.
+int fqd_empty(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -20,8 +20,13 @@ one entry point.  ``alphabet_pad`` alone picks its route: from 5 to 8
 (``wgmma``), thresholded and bit-packed in registers; any other alphabet
 takes a SIMT kernel that compares 4 symbols per word.  The tensor-core
 route is bound by int8 operations, the SIMT route by integer
-instructions, the rowwise kernel by device-memory bytes; the note at the
-top of ``hamming.cu`` says what holds each below its bound.
+instructions, the paired rowwise kernel by device-memory bytes.  The
+indexed rowwise entry's bound counts 8 B of indices a pair and each
+distinct row once, but it gathers two rows a pair from L2: a warp takes
+32 consecutive pairs, a group of threads shares each pair so that one
+load asks for contiguous pieces of several rows, and a thread issues the
+loads of up to 16 pairs before the arithmetic (``csrc/rowwise.cuh``).  The note at the top
+of ``hamming.cu`` says what holds each below its bound.
 Packed outputs hold 8 columns per byte in little bit order.  A symbol
 matches only where ``a == b`` and ``a < alphabet_pad``, so the pad symbol
 0xFF matches nothing.  The all-pairs kernel takes N and M in multiples of

@@ -165,6 +165,8 @@ def library() -> ctypes.CDLL:
         lib.fqd_rowwise_within_packed_indexed.argtypes = [
             p, p, p, p, i64, i, i, p]
         lib.fqd_rowwise_within_packed_indexed.restype = i
+        lib.fqd_empty.argtypes = [i, i, p]
+        lib.fqd_empty.restype = i
         lib.fqd_banded_within_edit.argtypes = [
             p, p, p, p, p, p, p, i64, i, i, p]
         lib.fqd_banded_within_edit.restype = i

@@ -185,10 +185,10 @@ def test_verify_sweep_holds_the_plain_versions_to_the_oracles(tmp_path):
                                 ["--verify", "--reduced"])
     assert code == 0, err[-3000:]
     line = last_json(out)
-    assert line["verify"] == "ok" and line["geometries"] == 19
+    assert line["verify"] == "ok" and line["geometries"] == 23
     assert line["by_kernel"] == {
         "within_tile_packed": 5, "bucket_within_packed": 6,
-        "rowwise_within_packed": 3, "banded_within_edit_distance": 5}
+        "rowwise_within_packed": 7, "banded_within_edit_distance": 5}
     assert line["device"]["platform"] == "cpu"
 
 

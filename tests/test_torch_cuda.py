@@ -462,17 +462,28 @@ _BOTH_ROUTES = {"FASTQDEDUP_DISPATCH_S": "1e-9",
                 "FASTQDEDUP_HOST_RATE": "1.0"}
 
 
-@pytest.mark.parametrize("lanes", [5, 13, 19, 27])
-@pytest.mark.parametrize("p", [1, 255, 257, 70_001])
+# The indexed entry's instances: 2 lanes (one 8-byte load a row) and each
+# group size at run-time width (1; 3 in groups of 4; 5, 8, 13 and 16 in
+# groups of 8; 19, 27 and 32 in groups of 32), and 40, past one lane a
+# thread.
+INDEXED_LANES = [1, 2, 3, 5, 8, 13, 16, 19, 27, 32, 40]
+
+
+@pytest.mark.parametrize("lanes", INDEXED_LANES)
+@pytest.mark.parametrize("p", [1, 31, 33, 255, 257, 70_001])
 def test_rowwise_indexed_entry_matches_plain(cuda_device, p, lanes):
     """The pair-list route's indexed entry against ``index_select`` +
-    ``rowwise_within_plain``: P on and off the block of 256, 5 to 27
-    lanes, neighbours, random and repeated indices, d = 0 to 3; one
+    ``rowwise_within_plain``: P on and off a warp's span of 32 pairs and
+    a block of 128, every instance's width, neighbours, random and
+    repeated indices, rows 0 and n - 1, self pairs, d = 0 to 3; one
     launch a call, counted under ``rowwise_within_packed``."""
     import chip_smoke
 
     rng = np.random.default_rng(p + lanes)
     packed, gi, gj = chip_smoke.rowwise_indexed_batch(rng, p, 3000, lanes)
+    edges = [(0, 2999), (2999, 0), (0, 0), (2999, 2999), (17, 17)]
+    for k, (i, j) in enumerate(edges[:p]):
+        gi[-1 - k], gj[-1 - k] = i, j
     for d in range(4):
         want = hk.rowwise_within_plain(packed.index_select(0, gi),
                                        packed.index_select(0, gj), d)
@@ -482,6 +493,89 @@ def test_rowwise_indexed_entry_matches_plain(cuda_device, p, lanes):
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want)
         assert hk.LAUNCHES["rowwise_within_packed"] == before + 1
+
+
+@pytest.mark.parametrize("p", [(1 << 19) - 1, (1 << 21) + 5])
+def test_rowwise_indexed_entry_13_lanes_large_batches(cuda_device, p):
+    """13 lanes (groups of 8 threads) at batches of 2^19 and 2^21 pairs
+    and off every span, against the plain version."""
+    import chip_smoke
+
+    packed, gi, gj = (t.to(cuda_device) for t in
+                      chip_smoke.rowwise_indexed_batch(
+                          np.random.default_rng(p), p, 400_000, 13))
+    for d in (0, 1, 3):
+        want = hk.rowwise_within_plain(packed.index_select(0, gi),
+                                       packed.index_select(0, gj), d)
+        got = hk.rowwise_within_packed_indexed(packed, gi, gj, d)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lanes,size,buckets", [
+    (13, 6, 5581), (2, 52, 260), (27, 5, 300), (5, 17, 40), (2, 3, 11)])
+def test_rowwise_indexed_entry_on_bucket_ordered_pairs(cuda_device, lanes,
+                                                       size, buckets):
+    """Pairs as the route emits them (every triu pair of each bucket,
+    bucket after bucket: ``chip_smoke.rowwise_bucket_batch``), at
+    dense's and umi12's largest batches and smaller ones, d = 0 to 2."""
+    import chip_smoke
+
+    n = 4 * size * buckets
+    packed, gi, gj = (t.to(cuda_device) for t in
+                      chip_smoke.rowwise_bucket_batch(
+                          np.random.default_rng(size), n, lanes, size,
+                          buckets))
+    for d in range(3):
+        want = hk.rowwise_within_plain(packed.index_select(0, gi),
+                                       packed.index_select(0, gj), d)
+        got = hk.rowwise_within_packed_indexed(packed, gi, gj, d)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lanes", [2, 5, 13, 27])
+@pytest.mark.parametrize("p", [4099, 70_002])
+def test_rowwise_indexed_entry_on_the_routes_index_layout(cuda_device, p,
+                                                          lanes):
+    """gi and gj as the two rows of one int32 [2, P] tensor, as the route
+    uploads them, with P off a multiple of 4 (gj starts 8 bytes past a
+    16-byte boundary), on bucket-ordered pairs."""
+    import chip_smoke
+
+    rng = np.random.default_rng(p + lanes)
+    packed, gi, gj = chip_smoke.rowwise_bucket_batch(rng, 4 * p, lanes, 3,
+                                                     p // 3)
+    pairs = torch.stack([gi, gj]).to(cuda_device)
+    assert pairs[1].data_ptr() % 16 != 0
+    packed = packed.to(cuda_device)
+    for d in range(3):
+        want = hk.rowwise_within_plain(packed.index_select(0, pairs[0]),
+                                       packed.index_select(0, pairs[1]), d)
+        got = hk.rowwise_within_packed_indexed(packed, pairs[0], pairs[1], d)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_rowwise_indexed_entry_two_lanes_off_eight_bytes(cuda_device):
+    """Rows of 2 lanes whose matrix starts 4 bytes past an 8-byte
+    boundary: the launcher gives them the instance that reads one lane at
+    a time, with the same answers."""
+    import chip_smoke
+
+    rng = np.random.default_rng(8)
+    packed, gi, gj = chip_smoke.rowwise_indexed_batch(rng, 4099, 900, 2)
+    flat = torch.empty(2 * 900 + 1, dtype=torch.int32, device=cuda_device)
+    flat[1:] = packed.to(cuda_device).reshape(-1)
+    shifted = flat[1:].view(900, 2)
+    assert shifted.data_ptr() % 8 == 4
+    gi, gj = gi.to(cuda_device), gj.to(cuda_device)
+    for d in range(3):
+        want = hk.rowwise_within_plain(shifted.index_select(0, gi),
+                                       shifted.index_select(0, gj), d)
+        got = hk.rowwise_within_packed_indexed(shifted, gi, gj, d)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_delayed_uploads_read_no_bucket_or_pair_list_result_early(

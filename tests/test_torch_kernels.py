@@ -160,6 +160,61 @@ def test_rowwise_plain_matches_pallas(length, d):
     np.testing.assert_array_equal(got, want)
 
 
+# (lanes, bucket size, buckets, d): dense's width and bucket size,
+# umi12's, the umi3 configuration's 27 lanes, a width of no instance.
+BUCKET_ORDERED = [(13, 6, 300, 1), (2, 52, 3, 1), (27, 5, 200, 2),
+                  (5, 17, 20, 0)]
+
+
+@pytest.mark.parametrize("lanes,size,buckets,d", BUCKET_ORDERED)
+def test_rowwise_bucket_batch_is_the_route_order(lanes, size, buckets, d):
+    """``chip_smoke.rowwise_bucket_batch`` emits the candidates of the
+    pair-list route, ``ops.bucket._small_bucket_candidates``, in the
+    same order on the same member lists: equal ``gi``, ``gj``."""
+    import chip_smoke
+    from fastqdedup_tpu_torch.ops.bucket import _small_bucket_candidates
+
+    n = 4 * size * buckets
+    packed, gi, gj = chip_smoke.rowwise_bucket_batch(
+        np.random.default_rng(lanes), n, lanes, size, buckets)
+    members = chip_smoke.bucket_members(np.random.default_rng(lanes), n,
+                                        size, buckets)
+    (want_i, want_j), = list(_small_bucket_candidates(
+        members.ravel(), np.arange(buckets) * size, np.arange(buckets),
+        size))
+    np.testing.assert_array_equal(gi.numpy(), want_i)
+    np.testing.assert_array_equal(gj.numpy(), want_j)
+    assert packed.shape == (n, lanes) and packed.dtype == torch.int32
+    assert len(set(members.ravel())) == size * buckets
+
+
+@pytest.mark.parametrize("lanes,size,buckets,d", BUCKET_ORDERED)
+def test_rowwise_plain_matches_pallas_on_bucket_pairs(lanes, size, buckets,
+                                                      d):
+    """The plain version of the indexed entry (``index_select`` +
+    ``rowwise_within_plain``, what a CPU tensor computes) on pairs in
+    the route's bucket order, against the Pallas kernel on the gathered
+    rows, padded to ``ROW_BLOCK`` with pairs of row 0 and itself as the
+    JAX package's ``_DevicePairVerifier.verify`` pads; answers mixed."""
+    import chip_smoke
+
+    n = 3 * size * buckets
+    packed, gi, gj = chip_smoke.rowwise_bucket_batch(
+        np.random.default_rng(50 + lanes), n, lanes, size, buckets)
+    p = len(gi)
+    padded = -(-p // hk.ROW_BLOCK) * hk.ROW_BLOCK
+    gi_p = np.zeros(padded, dtype=np.int64)
+    gj_p = np.zeros(padded, dtype=np.int64)
+    gi_p[:p], gj_p[:p] = gi.numpy(), gj.numpy()
+    rows = packed.numpy().view(np.uint32)
+    want = np.asarray(pallas.rowwise_within_packed(rows[gi_p], rows[gj_p],
+                                                   d))
+    got = hk.rowwise_within_packed_indexed(packed, gi, gj, d).numpy()
+    assert got.shape == (p, 1) and got.dtype == np.bool_
+    np.testing.assert_array_equal(got, want[:p])
+    assert want[p:].all() and got.any() and not got.all()
+
+
 @pytest.mark.parametrize("n,m,length,alphabet,d", [
     (128, 256, 2, 8, 0), (256, 128, 37, 8, 1), (128, 128, 37, 24, 2),
     (128, 384, 2, 24, 1),
