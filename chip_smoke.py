@@ -2243,17 +2243,14 @@ def first_run_worker(started: float, spawned: str, variant: str,
     from fastqdedup_tpu_torch.ops import edit_kernels, hamming_kernels
     for module in (kernel_lib, hamming_kernels, edit_kernels):
         timed_calls(module, "library", in_situ)
-    threads = []
+    # The prewarm thread's steps but the library's load, which
+    # ``in_run_s`` holds: the context and the first launches.
+    prewarm_steps: dict = {}
     if variant == "no-prewarm":
         warmup.prewarm_async = lambda *args, **kwargs: None
     else:
-        inner = warmup.prewarm_async
-
-        def keep_thread(*args, **kwargs):
-            threads.append(inner(*args, **kwargs))
-            return threads[-1]
-
-        warmup.prewarm_async = keep_thread
+        for step in ("_first_touch", "_launch_hamming", "_launch_edit"):
+            timed_calls(warmup, step, prewarm_steps)
     marks = []
 
     class Marks(logging.Handler):
@@ -2280,8 +2277,7 @@ def first_run_worker(started: float, spawned: str, variant: str,
         "run_s": run["seconds"],
         "whole_s": started - float(spawned) + time.perf_counter() - t_start,
         "in_run_s": in_situ,
-        "prewarm_thread_s": threads[0].seconds if threads and threads[0]
-        else None,
+        "prewarm_thread_s": prewarm_steps or None,
         "launches": run["launches"],
         "warmup_launches": dict(kernel_lib.WARMUP_LAUNCHES),
         "sha256_held": run["sha256"] == run["expected_sha256"]})

@@ -38,6 +38,7 @@ from .ops.bucket import (
 from .ops.components import connected_components_host
 from .ops.encode import UNASSIGNED, EncodeTable, keys_to_matrix
 from .ops.hamming import neighbor_pairs
+from .utils import trace
 
 # Below this group size brute-force tiling beats bucketing overhead
 # (one fixed 2048-row tile pair).
@@ -280,9 +281,6 @@ def _edit_on_card(dev) -> bool:
 def _edit_edges_entries(entries: Entries, n: int, max_distance: int,
                         shard: Tuple[int, int] = (0, 1)
                         ) -> Tuple[np.ndarray, np.ndarray]:
-    import logging
-    import time as _time
-
     from .ops.edit import (
         EDIT_VERIFY_BATCH,
         edit_verify_indexed,
@@ -291,51 +289,45 @@ def _edit_edges_entries(entries: Entries, n: int, max_distance: int,
     )
     from .runtime import big_empty, device, release
 
-    _logger = logging.getLogger("fastqdedup")
-    _debug = _logger.isEnabledFor(logging.DEBUG)
-    _t0 = _time.perf_counter()
-
     matrices = [matrix for _, matrix, _ in entries]
     gidx = [idx for _, _, idx in entries]
     dev = device()
     on_card = _edit_on_card(dev)
-    lengths = np.empty(n, dtype=np.int64)
-    lmax = 1
-    for length, _, idx in entries:
-        lengths[idx] = length
-        lmax = max(lmax, length)
-    # Pad every key to a common width once for gather-based verification.
-    # Pooled pages: at 31M x 100 B a fresh allocation here costs seconds
-    # of page backing per run on lazily-backed hosts.
-    lmax = -(-lmax // 16) * 16
-    padded = big_empty((n, lmax), dtype=np.uint8)
-    padded.fill(0xFF)
-    for length, matrix, idx in entries:
-        if length:
-            padded[idx, :length] = matrix
+    with trace.span("pairs.pad"):
+        lengths = np.empty(n, dtype=np.int64)
+        lmax = 1
+        for length, _, idx in entries:
+            lengths[idx] = length
+            lmax = max(lmax, length)
+        # Pad every key to a common width once for gather-based verification.
+        # Pooled pages: at 31M x 100 B a fresh allocation here costs seconds
+        # of page backing per run on lazily-backed hosts.
+        lmax = -(-lmax // 16) * 16
+        padded = big_empty((n, lmax), dtype=np.uint8)
+        padded.fill(0xFF)
+        for length, matrix, idx in entries:
+            if length:
+                padded[idx, :length] = matrix
 
-    key_upload = None
-    # (lmax is a multiple of 16, so the packed rows have whole bytes.)
-    keys_packed = on_card and PACK_KEY_MATRIX and \
-        max((int(m.max(initial=0)) for m in matrices), default=0) <= 14
-    if on_card:
-        # The key matrix goes to the card once: its copy is enqueued now,
-        # so it overlaps candidate generation, and each verification
-        # batch then sends only indices.
-        key_upload = _start_key_upload(
-            pack_nibble_rows(padded) if keys_packed else padded,
-            lengths.astype(np.int32), dev)
+        key_upload = None
+        # (lmax is a multiple of 16, so the packed rows have whole bytes.)
+        keys_packed = on_card and PACK_KEY_MATRIX and \
+            max((int(m.max(initial=0)) for m in matrices), default=0) <= 14
+        if on_card:
+            # The key matrix goes to the card once: its copy is enqueued now,
+            # so it overlaps candidate generation, and each verification
+            # batch then sends only indices.
+            key_upload = _start_key_upload(
+                pack_nibble_rows(padded) if keys_packed else padded,
+                lengths.astype(np.int32), dev)
     # Hash-run ownership shards candidate generation (sort + join) AND
     # the DP verification to ~1/P per host; the union of the per-host
     # verified edges is the full edge set (ops/bucket.edit_candidate_pairs).
-    _t_pad = _time.perf_counter()
-    cand_i, cand_j = edit_candidate_pairs(matrices, gidx, max_distance,
-                                          shard=shard)
-    _t_cand = _time.perf_counter()
-    if _debug:
-        _logger.debug("edit-edges[n=%d]: pad=%.1fs, candidates=%.1fs "
-                      "(%d pairs)", n, _t_pad - _t0, _t_cand - _t_pad,
-                      len(cand_i))
+    with trace.span("pairs.candidates"):
+        cand_i, cand_j = edit_candidate_pairs(matrices, gidx, max_distance,
+                                              shard=shard)
+    side = "device" if on_card else "host"
+    trace.count(f"pairs.candidates.{side}", len(cand_i))
     if not len(cand_i):
         if key_upload is not None:
             key_upload()  # a copy still reading ``padded`` ends first
@@ -343,24 +335,25 @@ def _edit_edges_entries(entries: Entries, n: int, max_distance: int,
         return cand_i, cand_j
     keep = np.empty(len(cand_i), dtype=bool)
     batch = EDIT_VERIFY_BATCH
-    if on_card:
-        # Device-resident keys + per-batch index pairs: 8 bytes a pair
-        # cross the wire instead of ~2 L (ops/edit.edit_verify_indexed).
-        keys_dev, lens_dev = key_upload()
-        for start in range(0, len(cand_i), batch):
-            sl = slice(start, start + batch)
-            keep[sl] = edit_verify_indexed(keys_dev, lens_dev, cand_i[sl],
-                                           cand_j[sl], max_distance,
-                                           packed=keys_packed)
-        del keys_dev, lens_dev
-        release(padded)  # refcount-gated no-op if a tensor still holds it
-        return cand_i[keep], cand_j[keep]
-    for start in range(0, len(cand_i), batch):
-        sl = slice(start, start + batch)
-        keep[sl] = within_edit_distance_auto(
-            padded[cand_i[sl]], lengths[cand_i[sl]],
-            padded[cand_j[sl]], lengths[cand_j[sl]], max_distance)
-    release(padded)
+    with trace.span("pairs.edit_verify"):
+        if on_card:
+            # Device-resident keys + per-batch index pairs: 8 bytes a pair
+            # cross the wire instead of ~2 L (ops/edit.edit_verify_indexed).
+            keys_dev, lens_dev = key_upload()
+            for start in range(0, len(cand_i), batch):
+                sl = slice(start, start + batch)
+                keep[sl] = edit_verify_indexed(
+                    keys_dev, lens_dev, cand_i[sl], cand_j[sl],
+                    max_distance, packed=keys_packed)
+            del keys_dev, lens_dev
+        else:
+            for start in range(0, len(cand_i), batch):
+                sl = slice(start, start + batch)
+                keep[sl] = within_edit_distance_auto(
+                    padded[cand_i[sl]], lengths[cand_i[sl]],
+                    padded[cand_j[sl]], lengths[cand_j[sl]], max_distance)
+    release(padded)  # refcount-gated no-op if a tensor still holds it
+    trace.count(f"pairs.kept.{side}", int(keep.sum()))
     return cand_i[keep], cand_j[keep]
 
 
@@ -647,6 +640,7 @@ def key_groups_from_arrays(lengths: List[int], voids: List[np.ndarray],
                      None if first_pos is None else list(first_pos))
 
 
+@trace.spanned("pairs")
 def build_partition_groups(groups: KeyGroups, max_distance: int,
                            use_edit_distance: bool = False,
                            table: Optional[EncodeTable] = None,
@@ -667,19 +661,6 @@ def build_partition_groups(groups: KeyGroups, max_distance: int,
     bitmap and the per-group key-table scans are skipped — at 31M x
     100 bp keys that scan costs seconds per host, replicated.
     """
-    import logging
-    import time as _time
-    _logger = logging.getLogger("fastqdedup")
-    _debug = _logger.isEnabledFor(logging.DEBUG)
-    _t0 = _time.perf_counter()
-
-    def _mark(label: str) -> None:
-        nonlocal _t0
-        if _debug:
-            now = _time.perf_counter()
-            _logger.debug(f"partition/{label}: {now - _t0:.1f}s")
-            _t0 = now
-
     if table is None:
         table = EncodeTable("ACGTN")
     n = groups.n
@@ -690,61 +671,60 @@ def build_partition_groups(groups: KeyGroups, max_distance: int,
         idx = np.arange(n, dtype=np.int64)
         return Partition(idx, idx, idx + 1, empty, empty, idx,
                          np.zeros(n, dtype=np.int64))
-    if byte_presence is not None:
-        table.extend_from_presence(byte_presence)
-    entries: Entries = []
-    for g, length in enumerate(groups.lengths):
-        size = len(groups.counts[g])
-        idx = np.arange(groups.starts[g], groups.starts[g] + size,
-                        dtype=np.int64)
-        if length == 0:
-            matrix = np.zeros((size, 0), dtype=np.uint8)
-        else:
-            # Zero-copy view of the key table; _encode_entries decides
-            # whether raw bytes are safe (they are unless 0xFF occurs).
-            matrix = groups.voids[g].view(np.uint8).reshape(size, length)
-            if byte_presence is None:
-                table.extend_from(matrix)
-        entries.append((length, matrix, idx))
-    entries = _encode_entries(entries, table)
-    _mark("alphabet")
+    with trace.span("pairs.alphabet"):
+        if byte_presence is not None:
+            table.extend_from_presence(byte_presence)
+        entries: Entries = []
+        for g, length in enumerate(groups.lengths):
+            size = len(groups.counts[g])
+            idx = np.arange(groups.starts[g], groups.starts[g] + size,
+                            dtype=np.int64)
+            if length == 0:
+                matrix = np.zeros((size, 0), dtype=np.uint8)
+            else:
+                # Zero-copy view of the key table; _encode_entries decides
+                # whether raw bytes are safe (they are unless 0xFF occurs).
+                matrix = groups.voids[g].view(np.uint8).reshape(size, length)
+                if byte_presence is None:
+                    table.extend_from(matrix)
+            entries.append((length, matrix, idx))
+        entries = _encode_entries(entries, table)
     pid, nproc = shard
-    if use_edit_distance:
-        if n <= HOST_LIMIT:
-            # Tiny inputs: every host computes the full edge set
-            # identically; skip the exchange below.
-            keys = [groups.key_bytes(i) for i in range(n)]
-            ei, ej = _host_edit_edges(keys, max_distance)
-            nproc = 1
+    with trace.span("pairs.edges"):
+        if use_edit_distance:
+            if n <= HOST_LIMIT:
+                # Tiny inputs: every host computes the full edge set
+                # identically; skip the exchange below.
+                keys = [groups.key_bytes(i) for i in range(n)]
+                ei, ej = _host_edit_edges(keys, max_distance)
+                nproc = 1
+            else:
+                ei, ej = _edit_edges_entries(entries, n, max_distance, shard)
         else:
-            ei, ej = _edit_edges_entries(entries, n, max_distance, shard)
-    else:
-        ei, ej = _hamming_edges_entries(entries, table, max_distance,
-                                        shard)
-    _mark("edges")
-    if nproc > 1:
-        from .parallel.distributed import allgather_int64_pairs
-        ei, ej = allgather_int64_pairs(ei, ej)
-        if len(ei):
-            # A pair may surface on two hosts (different segment passes);
-            # dedupe so per-cluster edge sets stay canonical.  Native
-            # radix sort + adjacent-unique (this dedup over the FULL
-            # gathered edge list is replicated on every host).
-            codes = np.minimum(ei, ej) * np.int64(n) + np.maximum(ei, ej)
-            try:
-                from .native.loader import radix_sort_u64_native
-                codes = radix_sort_u64_native(
-                    codes.view(np.uint64)).view(np.int64)
-                if len(codes) > 1:
-                    keep = np.empty(len(codes), dtype=bool)
-                    keep[0] = True
-                    np.not_equal(codes[1:], codes[:-1], out=keep[1:])
-                    codes = codes[keep]
-            except (ImportError, AttributeError):
-                codes = np.unique(codes)
-            ei, ej = codes // n, codes % n
-    labels = _component_labels(n, ei, ej)
-    _mark("labels")
-    part = _assemble_partition(n, labels, ei, ej)
-    _mark("assemble")
-    return part
+            ei, ej = _hamming_edges_entries(entries, table, max_distance,
+                                            shard)
+        if nproc > 1:
+            from .parallel.distributed import allgather_int64_pairs
+            ei, ej = allgather_int64_pairs(ei, ej)
+            if len(ei):
+                # A pair may surface on two hosts (different segment passes);
+                # dedupe so per-cluster edge sets stay canonical.  Native
+                # radix sort + adjacent-unique (this dedup over the FULL
+                # gathered edge list is replicated on every host).
+                codes = np.minimum(ei, ej) * np.int64(n) + np.maximum(ei, ej)
+                try:
+                    from .native.loader import radix_sort_u64_native
+                    codes = radix_sort_u64_native(
+                        codes.view(np.uint64)).view(np.int64)
+                    if len(codes) > 1:
+                        keep = np.empty(len(codes), dtype=bool)
+                        keep[0] = True
+                        np.not_equal(codes[1:], codes[:-1], out=keep[1:])
+                        codes = codes[keep]
+                except (ImportError, AttributeError):
+                    codes = np.unique(codes)
+                ei, ej = codes // n, codes % n
+    with trace.span("pairs.labels"):
+        labels = _component_labels(n, ei, ej)
+    with trace.span("pairs.assemble"):
+        return _assemble_partition(n, labels, ei, ej)

@@ -33,6 +33,7 @@ import torch
 from ..parallel.distributed import _mix64
 from ..runtime import device as _device
 from ..runtime import local_devices
+from ..utils import trace
 from .hamming_kernels import (
     _pad_dims,
     bucket_within_packed,
@@ -248,7 +249,8 @@ def measured_dispatch_seconds() -> float:
 
 def _synchronize(dev: torch.device) -> None:
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        with trace.span("device.wait"):
+            torch.cuda.synchronize(dev)
 
 
 def _timed(fn, _t) -> float:
@@ -585,24 +587,8 @@ def hamming_neighbor_pairs_bucketed(
     representation-invariant, so only kernel-bound rows pay encoding).
     When None, ``matrix`` already holds alphabet indices.
     """
-    import logging
-    import time as _time
-
     from ..parallel.distributed import bucket_owner_mask
     from .hamming import neighbor_pairs
-
-    _logger = logging.getLogger("fastqdedup")
-    _debug = _logger.isEnabledFor(logging.DEBUG)
-    _times = {"hash": 0.0, "group": 0.0, "host-pairs": 0.0,
-              "launch": 0.0, "drain": 0.0, "oversized": 0.0,
-              "dedup": 0.0}
-    _t0 = [_time.perf_counter()]
-
-    def _mark(key: str) -> None:
-        if _debug:
-            now = _time.perf_counter()
-            _times[key] += now - _t0[0]
-            _t0[0] = now
 
     pid, nproc = shard
     n, length = matrix.shape
@@ -628,7 +614,6 @@ def hamming_neighbor_pairs_bucketed(
     launched: List = []
     inflight = 0
     oversized: List[np.ndarray] = []
-    pair_src = {"host": 0, "device": 0}
     dev_verifier: "Optional[_DevicePairVerifier]" = None
 
     # Multi-host: shard the per-row bucket hashing itself.  Each host
@@ -650,18 +635,19 @@ def hamming_neighbor_pairs_bucketed(
         # sharding contract intact (tests call shard=(p, P) in ONE
         # process, where the all-gather would be a no-op and the
         # gathered block would silently stand in for the full table).
-        blk_lo = pid * n // nproc
-        blk_hi = (pid + 1) * n // nproc
-        local = np.empty((len(seg_list), blk_hi - blk_lo), dtype=np.int64)
-        for si, (a, b) in enumerate(seg_list):
-            local[si] = _hash_window_rows(
-                matrix[blk_lo:blk_hi, a:b], b - a,
-                strong=False).view(np.int64)
-        from ..parallel.distributed import allgather_int64_cols
-        g, _ = allgather_int64_cols(local)
-        gathered_hashes = g.view(np.uint64)
-        del g  # keep exactly one live view so release() can recycle
-        _mark("hash")
+        with trace.span("pairs.hash"):
+            blk_lo = pid * n // nproc
+            blk_hi = (pid + 1) * n // nproc
+            local = np.empty((len(seg_list), blk_hi - blk_lo),
+                             dtype=np.int64)
+            for si, (a, b) in enumerate(seg_list):
+                local[si] = _hash_window_rows(
+                    matrix[blk_lo:blk_hi, a:b], b - a,
+                    strong=False).view(np.int64)
+            from ..parallel.distributed import allgather_int64_cols
+            g, _ = allgather_int64_cols(local)
+            gathered_hashes = g.view(np.uint64)
+            del g  # keep exactly one live view so release() can recycle
 
     def drain(down_to: int) -> None:
         # Resolve oldest batches until in-flight bytes fall to the target.
@@ -669,18 +655,19 @@ def hamming_neighbor_pairs_bucketed(
         # them go on computing on the device while the host extracts
         # pairs here.
         nonlocal launched, inflight
-        _mark("launch")
-        while launched and inflight > down_to:
-            take = 0
-            while take < len(launched) and inflight > down_to:
-                inflight -= launched[take][2]
-                take += 1
-            head, launched = launched[:take], launched[take:]
-            for gi, gj in _drain_bucket_batches(head, matrix):
-                pair_src["device"] += len(gi)
-                pair_codes.append(np.minimum(gi, gj) * n +
-                                  np.maximum(gi, gj))
-        _mark("drain")
+        if not launched or inflight <= down_to:
+            return
+        with trace.span("pairs.drain"):
+            while launched and inflight > down_to:
+                take = 0
+                while take < len(launched) and inflight > down_to:
+                    inflight -= launched[take][2]
+                    take += 1
+                head, launched = launched[:take], launched[take:]
+                for gi, gj in _drain_bucket_batches(head, matrix):
+                    trace.count("pairs.kept.device", len(gi))
+                    pair_codes.append(np.minimum(gi, gj) * n +
+                                      np.maximum(gi, gj))
 
     # Enqueue bucket batches (pinned non_blocking uploads and launches on
     # the current stream: the host builds the next batch while the device
@@ -689,18 +676,16 @@ def hamming_neighbor_pairs_bucketed(
     # near-threshold buckets must not pile unbounded inputs and outputs
     # onto the device or into pinned host memory.
     for seg_index, (seg_start, seg_end) in enumerate(seg_list):
-        _t0[0] = _time.perf_counter()
         window = matrix[:, seg_start:seg_end]
         if gathered_hashes is not None:
-            h = gathered_hashes[seg_index]
-            salt_mix = np.uint64(
-                (0x9E3779B97F4A7C15 * (seg_index + 1)) & _MASK64)
-            owner = _mix64(h ^ salt_mix)
-            owner %= np.uint64(nproc)
-            mine = np.flatnonzero(owner == np.uint64(pid))
-            _mark("hash")
-            order, starts, ends = _bucket_slices_of_hashes(h[mine])
-            order = mine[order]
+            with trace.span("pairs.hash"):
+                h = gathered_hashes[seg_index]
+                salt_mix = np.uint64(
+                    (0x9E3779B97F4A7C15 * (seg_index + 1)) & _MASK64)
+                owner = _mix64(h ^ salt_mix)
+                owner %= np.uint64(nproc)
+                mine = np.flatnonzero(owner == np.uint64(pid))
+                hashes = h[mine]
         elif nproc > 1:
             # Ownership is a salted mix of the segment-content hash, so
             # it is computable PER ROW before any grouping: every member
@@ -714,71 +699,74 @@ def hamming_neighbor_pairs_bucketed(
             seed = (0x9E3779B97F4A7C15 * (w + 0x10001)
                     + 0x85EBCA6B) & _MASK64
             salt_mix = (0x9E3779B97F4A7C15 * (seg_index + 1)) & _MASK64
-            try:
-                from ..native.loader import hash_owner_select_native
-                mine, owned_hashes = hash_owner_select_native(
-                    window, seed, salt_mix, pid, nproc)
-                _mark("hash")
-                order, starts, ends = _bucket_slices_of_hashes(
-                    owned_hashes)
-            except (ImportError, ValueError):
-                hashes = _hash_window_rows(window, w, strong=False)
-                mine = np.flatnonzero(
-                    bucket_owner_mask(hashes, seg_index, pid, nproc))
-                _mark("hash")
-                order, starts, ends = _bucket_slices_of_hashes(
-                    hashes[mine])
-            order = mine[order]
+            with trace.span("pairs.hash"):
+                try:
+                    from ..native.loader import hash_owner_select_native
+                    mine, owned_hashes = hash_owner_select_native(
+                        window, seed, salt_mix, pid, nproc)
+                    hashes = owned_hashes
+                except (ImportError, ValueError):
+                    hashes = _hash_window_rows(window, w, strong=False)
+                    mine = np.flatnonzero(
+                        bucket_owner_mask(hashes, seg_index, pid, nproc))
+                    hashes = hashes[mine]
         else:
-            hashes = _hash_window_rows(window, window.shape[1],
-                                       strong=False)
-            _mark("hash")
+            with trace.span("pairs.hash"):
+                hashes = _hash_window_rows(window, window.shape[1],
+                                           strong=False)
+            mine = None
+        with trace.span("pairs.group"):
             order, starts, ends = _bucket_slices_of_hashes(hashes)
-        _mark("group")
-        sizes = ends - starts
-        owned = np.ones(len(starts), dtype=bool)
-        # Crossover from MEASURED dispatch latency and host compare rate:
-        # the slower the round trip, the more small buckets stay on host.
-        host_cap = choose_host_bucket_cap(sizes, length,
-                                          large_bucket_threshold)
-        small = (sizes > 1) & (sizes <= host_cap) & owned
-        small_sizes = sizes[small]
-        small_pairs = int((small_sizes.astype(np.int64) *
-                           (small_sizes - 1) // 2).sum())
-        # Explicit-pair-list device route: when the measured rates say
-        # shipping 8 B/pair of indices to the rowwise packed kernel
-        # beats the host C verifier (dup-dense inputs on a locally-
-        # attached chip), verify the small buckets' candidates on
-        # device.  Completeness is unaffected — only WHERE candidates
-        # are verified changes, and both verifiers compute the same
-        # full-row Hamming predicate.
-        use_dev_pairs = (
-            small_pairs > 0 and alphabet_size <= 16 and n < (1 << 31)
-            and _pairlist_device_wins(
-                small_pairs, n, length,
-                first_use=dev_verifier is None,
-                upload_share=1.0 / (max_distance + 1)))
-        if use_dev_pairs and dev_verifier is None:
-            dev_verifier = _DevicePairVerifier(matrix, encode_lut,
-                                               max_distance)
-        for s in np.unique(small_sizes):
-            selected = np.flatnonzero(small & (sizes == s))
-            if use_dev_pairs:
-                for gi, gj in _small_bucket_candidates(
-                        order, starts, selected, int(s)):
-                    keep = dev_verifier.verify(gi, gj)
-                    gi, gj = gi[keep], gj[keep]
-                    pair_src["device"] += len(gi)
-                    pair_codes.append(np.minimum(gi, gj) * n +
-                                      np.maximum(gi, gj))
-                continue
-            for gi, gj in _host_small_bucket_pairs(
-                    matrix, order, starts, selected, int(s),
-                    max_distance):
-                pair_src["host"] += len(gi)
-                pair_codes.append(np.minimum(gi, gj) * n +
-                                  np.maximum(gi, gj))
-        _mark("host-pairs")
+            if mine is not None:
+                order = mine[order]
+            sizes = ends - starts
+            owned = np.ones(len(starts), dtype=bool)
+            # Crossover from MEASURED dispatch latency and host compare
+            # rate: the slower the round trip, the more small buckets stay
+            # on host.
+            host_cap = choose_host_bucket_cap(sizes, length,
+                                              large_bucket_threshold)
+            small = (sizes > 1) & (sizes <= host_cap) & owned
+            small_sizes = sizes[small]
+            small_pairs = int((small_sizes.astype(np.int64) *
+                               (small_sizes - 1) // 2).sum())
+            # Explicit-pair-list device route: when the measured rates say
+            # shipping 8 B/pair of indices to the rowwise packed kernel
+            # beats the host C verifier (dup-dense inputs on a locally-
+            # attached chip), verify the small buckets' candidates on
+            # device.  Completeness is unaffected — only WHERE candidates
+            # are verified changes, and both verifiers compute the same
+            # full-row Hamming predicate.
+            use_dev_pairs = (
+                small_pairs > 0 and alphabet_size <= 16 and n < (1 << 31)
+                and _pairlist_device_wins(
+                    small_pairs, n, length,
+                    first_use=dev_verifier is None,
+                    upload_share=1.0 / (max_distance + 1)))
+        if small_pairs:
+            side = "device" if use_dev_pairs else "host"
+            trace.count(f"pairs.candidates.{side}", small_pairs)
+            with trace.span(f"pairs.{side}_verify"):
+                if use_dev_pairs and dev_verifier is None:
+                    dev_verifier = _DevicePairVerifier(matrix, encode_lut,
+                                                       max_distance)
+                for s in np.unique(small_sizes):
+                    selected = np.flatnonzero(small & (sizes == s))
+                    if use_dev_pairs:
+                        for gi, gj in _small_bucket_candidates(
+                                order, starts, selected, int(s)):
+                            keep = dev_verifier.verify(gi, gj)
+                            gi, gj = gi[keep], gj[keep]
+                            trace.count("pairs.kept.device", len(gi))
+                            pair_codes.append(np.minimum(gi, gj) * n +
+                                              np.maximum(gi, gj))
+                        continue
+                    for gi, gj in _host_small_bucket_pairs(
+                            matrix, order, starts, selected, int(s),
+                            max_distance):
+                        trace.count("pairs.kept.host", len(gi))
+                        pair_codes.append(np.minimum(gi, gj) * n +
+                                          np.maximum(gi, gj))
         classes = [c for c in SIZE_CLASSES
                    if host_cap < c <= large_bucket_threshold]
         lower = host_cap
@@ -793,7 +781,12 @@ def hamming_neighbor_pairs_bucketed(
             in_class = (sizes > lower) & (sizes <= size_class) & owned
             lower = size_class
             selected = np.flatnonzero(in_class)
-            if len(selected):
+            if not len(selected):
+                continue
+            in_sizes = sizes[selected].astype(np.int64)
+            trace.count("pairs.candidates.device",
+                        (in_sizes * (in_sizes - 1) // 2).sum())
+            with trace.span("pairs.device_verify"):
                 member_lists = [order[starts[b]:ends[b]] for b in selected]
                 for item in _launch_bucket_batches(
                         matrix, member_lists, size_class, alphabet_size,
@@ -804,7 +797,6 @@ def hamming_neighbor_pairs_bucketed(
                     if inflight > MAX_INFLIGHT_BYTES:
                         drain(MAX_INFLIGHT_BYTES // 2)
         over_cutoff = classes[-1] if classes else host_cap
-        _mark("launch")
         for b in np.flatnonzero((sizes > over_cutoff) & owned):
             oversized.append((order[starts[b]:ends[b]], seg))
     if gathered_hashes is not None:
@@ -815,39 +807,33 @@ def hamming_neighbor_pairs_bucketed(
     drain(0)
     # Oversized buckets: dedicated all-pairs sweep per bucket (same
     # segment-complement reduction + per-pair segment re-check).
-    _t0[0] = _time.perf_counter()
-    for idx, seg in oversized:
-        if seg is not None:
-            seg_s, seg_e = seg
-            rows = np.concatenate(
-                [matrix[idx, :seg_s], matrix[idx, seg_e:]], axis=1)
-        else:
-            rows = matrix[idx]
-        if encode_lut is not None:
-            rows = encode_lut[rows]
-        li, lj = neighbor_pairs(rows, alphabet_size, max_distance)
-        gi, gj = idx[li], idx[lj]
-        if seg is not None and len(gi):
-            same = (matrix[gi, seg_s:seg_e]
-                    == matrix[gj, seg_s:seg_e]).all(axis=1)
-            gi, gj = gi[same], gj[same]
-        pair_src["device"] += len(gi)
-        pair_codes.append(np.minimum(gi, gj) * n + np.maximum(gi, gj))
-    _mark("oversized")
+    if oversized:
+        with trace.span("pairs.oversized"):
+            for idx, seg in oversized:
+                trace.count("pairs.candidates.device",
+                            len(idx) * (len(idx) - 1) // 2)
+                if seg is not None:
+                    seg_s, seg_e = seg
+                    rows = np.concatenate(
+                        [matrix[idx, :seg_s], matrix[idx, seg_e:]], axis=1)
+                else:
+                    rows = matrix[idx]
+                if encode_lut is not None:
+                    rows = encode_lut[rows]
+                li, lj = neighbor_pairs(rows, alphabet_size, max_distance)
+                gi, gj = idx[li], idx[lj]
+                if seg is not None and len(gi):
+                    same = (matrix[gi, seg_s:seg_e]
+                            == matrix[gj, seg_s:seg_e]).all(axis=1)
+                    gi, gj = gi[same], gj[same]
+                trace.count("pairs.kept.device", len(gi))
+                pair_codes.append(np.minimum(gi, gj) * n +
+                                  np.maximum(gi, gj))
 
     if not pair_codes:
         return (np.empty(0, dtype=np.int64),) * 2
-    codes = _sorted_unique_codes(np.concatenate(pair_codes))
-    _mark("dedup")
-    if _debug:
-        total_pairs = pair_src["host"] + pair_src["device"]
-        _logger.debug(
-            "bucketed-pairs[L=%d,n=%d]: %s | pairs host=%d device=%d "
-            "(%.0f%% on device)", length, n,
-            ", ".join(f"{k}={v:.1f}s" for k, v in _times.items()
-                      if v >= 0.05),
-            pair_src["host"], pair_src["device"],
-            100.0 * pair_src["device"] / max(total_pairs, 1))
+    with trace.span("pairs.dedup"):
+        codes = _sorted_unique_codes(np.concatenate(pair_codes))
     return codes // n, codes % n
 
 

@@ -26,6 +26,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils import trace
+
 
 def staging(shape, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
     """An empty host tensor to build an upload to ``dev`` in: pinned
@@ -37,7 +39,9 @@ def upload(host: torch.Tensor, dev: torch.device) -> torch.Tensor:
     """``host`` on ``dev``.  On a CUDA device the copy is issued on the
     device's current stream with ``non_blocking=True``: from pinned
     memory it returns before the copy is done.  On the CPU device it is
-    ``host`` itself."""
+    ``host`` itself.  Counts the bytes sent in ``bytes.h2d``."""
+    if dev.type == "cuda":
+        trace.count("bytes.h2d", host.nbytes)
     return host.to(dev, non_blocking=True)
 
 
@@ -52,9 +56,11 @@ class HostCopy(NamedTuple):
 def start_host_copy(tensor: torch.Tensor) -> HostCopy:
     """Start copying ``tensor`` to the host and return at once.  On a
     CUDA device the copy goes into a pinned tensor on the device's
-    current stream, an event behind it; a CPU tensor is taken as it is."""
+    current stream, an event behind it; a CPU tensor is taken as it is.
+    Counts the bytes copied in ``bytes.d2h``."""
     if tensor.device.type != "cuda":
         return HostCopy(tensor, None)
+    trace.count("bytes.d2h", tensor.nbytes)
     host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
     with torch.cuda.device(tensor.device):
         host.copy_(tensor, non_blocking=True)
@@ -64,7 +70,9 @@ def start_host_copy(tensor: torch.Tensor) -> HostCopy:
 
 
 def host_array(copy: HostCopy) -> np.ndarray:
-    """The copied tensor as a numpy array, once its copy has completed."""
+    """The copied tensor as a numpy array, once its copy has completed:
+    the wait is the span ``device.wait``."""
     if copy.event is not None:
-        copy.event.synchronize()
+        with trace.span("device.wait"):
+            copy.event.synchronize()
     return copy.host.numpy()

@@ -483,8 +483,7 @@ def _ragged_take(data: np.ndarray, offsets: np.ndarray,
 def exchange_merge_key_tables(key_data: np.ndarray,
                               key_offsets: np.ndarray,
                               counts: np.ndarray, first_pos: np.ndarray,
-                              h1: np.ndarray, h2: np.ndarray,
-                              progress=None
+                              h1: np.ndarray, h2: np.ndarray
                               ) -> Tuple[np.ndarray, np.ndarray,
                                          np.ndarray, np.ndarray]:
     """Merge per-host key tables into one global deduplicated table.
@@ -527,8 +526,6 @@ def exchange_merge_key_tables(key_data: np.ndarray,
     meta[3] = counts
     meta[4] = first_pos
     gathered, sizes = allgather_int64_cols(meta)
-    if progress:
-        progress("meta-allgather")
     host_starts = np.zeros(len(sizes) + 1, dtype=np.int64)
     np.cumsum(sizes, out=host_starts[1:])
     rep_gidx, m_cnt, m_fp, m_len = _owned_meta_merge(
@@ -538,16 +535,12 @@ def exchange_merge_key_tables(key_data: np.ndarray,
     from ..runtime import release
     release(gathered)  # merge outputs are copies; recycle the 40 B/row
     gathered = None
-    if progress:
-        progress("owned-merge")
     owned_cols = np.empty((4, len(rep_gidx)), dtype=np.int64)
     owned_cols[0] = rep_gidx
     owned_cols[1] = m_cnt
     owned_cols[2] = m_fp
     owned_cols[3] = m_len
     merged, _ = allgather_int64_cols(owned_cols)
-    if progress:
-        progress("merged-allgather")
     # Final order: ascending representative row index — which groups
     # reps by host (host segments are contiguous index ranges), so the
     # payload streams below concatenate directly into table order.
@@ -569,13 +562,9 @@ def exchange_merge_key_tables(key_data: np.ndarray,
     hi = int(np.searchsorted(rep_all, host_starts[pid + 1]))
     my_rows = rep_all[lo:hi] - host_starts[pid]
     my_payload = _ragged_take(key_data, key_offsets, my_rows)
-    if progress:
-        progress("payload-take")
     data, _ = allgather_uint8(my_payload)
     release(my_payload)  # its bytes now live in the gathered table
     my_payload = None
-    if progress:
-        progress("payload-allgather")
     offsets = np.zeros(len(rep_all) + 1, dtype=np.int64)
     np.cumsum(len_all, out=offsets[1:])
     # rep_all/len_all are dead here; recycle their pooled buffers so the

@@ -28,7 +28,6 @@ batch execution:
 
 import logging
 import os
-import time as _time
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -44,6 +43,7 @@ from .engine import KeyGroups, build_partition_groups
 from .io.fastq import FastqChunk, FastqFormatError, read_fastq_chunks
 from .io.opener import xopen
 from .quality import ragged_average_error_rate
+from .utils import trace
 from .utils.ragged import (
     apply_slice,
     concat_ragged,
@@ -206,7 +206,8 @@ def _zip_chunks_serial(input_files: List[str], chunk_records: int,
     try:
         while True:
             if pool is not None:
-                futures = [pool.submit(next, it, None) for it in iterators]
+                futures = [pool.submit(trace.carry(next), it, None)
+                           for it in iterators]
                 maybe_chunks = [f.result() for f in futures]
             else:
                 maybe_chunks = [next(iterators[0], None)]
@@ -682,6 +683,7 @@ def _finalize_groups(key_data: np.ndarray, key_offsets: np.ndarray,
                      first_pos=group_pos)
 
 
+@trace.spanned("pass1.quality")
 def _quality_mask(qual_data, qual_offsets, max_average_error_rate
                   ) -> np.ndarray:
     """uint8 keep-mask for one chunk (runs on its own worker thread)."""
@@ -933,8 +935,8 @@ def _parallel_range_chunks(input_files: List[str], chunk_records: int,
                 except queue.Full:
                     continue
 
-    threads = [threading.Thread(target=produce, args=(plan, base0),
-                                daemon=True)
+    threads = [threading.Thread(target=trace.carry(produce),
+                                args=(plan, base0), daemon=True)
                for plan, base0 in parts]
     for t in threads:
         t.start()
@@ -988,6 +990,7 @@ def _merge_output_parts(out: str, parts_dir: str) -> None:
     shutil.rmtree(parts_dir)
 
 
+@trace.spanned("pass1.render")
 def _render_and_recycle(store, chunks, is_new, base, chunk_index,
                         recycle_bin):
     """Arena render of one chunk's new-key records + parse-buffer
@@ -1024,29 +1027,31 @@ def _filter_and_accumulate(accumulator, key_data, key_offsets, mask_future,
     next chunk's insert.  Returns (records_in, kept).
     """
     counted = mask_future.result() if mask_future is not None else None
-    if store is not None:
-        is_new = accumulator.add_mark(key_data, key_offsets, counted, base) \
-            if not store.abandoned else None
-        if render_pool is not None:
-            # Even after abandonment (is_new None -> add no-ops) the
-            # recycling stays on the render worker so exactly one stage
-            # ever owns a chunk's buffers.
-            render_futures.append(render_pool.submit(
-                _render_and_recycle, store, chunks, is_new, base,
-                chunk_index, recycle_bin))
-            if is_new is None:
+    with trace.span("pass1.accumulate"):
+        if store is not None:
+            is_new = accumulator.add_mark(key_data, key_offsets, counted,
+                                          base) \
+                if not store.abandoned else None
+            if render_pool is not None:
+                # Even after abandonment (is_new None -> add no-ops) the
+                # recycling stays on the render worker so exactly one stage
+                # ever owns a chunk's buffers.
+                render_futures.append(render_pool.submit(
+                    trace.carry(_render_and_recycle), store, chunks, is_new,
+                    base, chunk_index, recycle_bin))
+                if is_new is None:
+                    accumulator.add(key_data, key_offsets, counted, base)
+            elif is_new is not None:
+                _render_and_recycle(store, chunks, is_new, base, chunk_index,
+                                    recycle_bin)
+            else:
                 accumulator.add(key_data, key_offsets, counted, base)
-        elif is_new is not None:
-            _render_and_recycle(store, chunks, is_new, base, chunk_index,
-                                recycle_bin)
+                _render_and_recycle(store, chunks, None, base, chunk_index,
+                                    recycle_bin)
         else:
             accumulator.add(key_data, key_offsets, counted, base)
-            _render_and_recycle(store, chunks, None, base, chunk_index,
-                                recycle_bin)
-    else:
-        accumulator.add(key_data, key_offsets, counted, base)
-    kept = int(counted.sum()) if counted is not None else b
-    return b, kept
+        kept = int(counted.sum()) if counted is not None else b
+        return b, kept
 
 
 def _kept_first_positions(groups: KeyGroups,
@@ -1087,23 +1092,24 @@ def deduplicate_cluster(
     interpreter exit or when the process group is destroyed.
     """
     prewarm: List = []
-    try:
-        _deduplicate_cluster_impl(
-            input_files, output_files, check_slices, max_distance,
-            max_average_error_rate, cluster_dissection_func,
-            use_edit_distance, chunk_records, prewarm)
-    except BaseException:
-        from .parallel.transport import abort_mesh
-        abort_mesh()
-        raise
-    finally:
-        # Only reached with a thread still listed when the run failed
-        # before its own join: that failure is the one to report.
-        for thread in prewarm:
-            try:
-                thread.join()
-            except Exception:
-                logger.exception("prewarm thread failed")
+    with trace.job():
+        try:
+            _deduplicate_cluster_impl(
+                input_files, output_files, check_slices, max_distance,
+                max_average_error_rate, cluster_dissection_func,
+                use_edit_distance, chunk_records, prewarm)
+        except BaseException:
+            from .parallel.transport import abort_mesh
+            abort_mesh()
+            raise
+        finally:
+            # Only reached with a thread still listed when the run failed
+            # before its own join: that failure is the one to report.
+            for thread in prewarm:
+                try:
+                    thread.join()
+                except Exception:
+                    logger.exception("prewarm thread failed")
 
 
 def _deduplicate_cluster_impl(
@@ -1182,220 +1188,216 @@ def _deduplicate_cluster_impl(
     # overlapping with the parse thread and the quality filter.
     from concurrent.futures import ThreadPoolExecutor
 
-    accumulator = _make_key_accumulator()
-    # Default multi-host mode: byte-range BGZF splitting — each host
-    # inflates and parses only its 1/P record range (exact global record
-    # ordinals from a newline-count exchange).  Falls back to strided
-    # chunk ownership (parse everything, keep 1/P) for non-BGZF inputs.
-    range_plan = None
-    range_base = 0
-    # Parallel range ingest (within one host): the native parser's record
-    # scan is single-threaded per reader, so once inflate overlaps, the
-    # scan bounds pass-1 throughput.  Splitting this host's record window
-    # into concurrent BGZF range readers multiplies scan throughput by
-    # the reader count.  Chunks then arrive out of position order; every
-    # consumer is position-keyed (see _parallel_range_chunks).
-    parallel_parts = None
-    if os.environ.get("FASTQDEDUP_PARALLEL_INGEST", "1") != "0":
-        try:
-            _cpus = len(os.sched_getaffinity(0))  # respects core pinning
-        except (AttributeError, OSError):  # pragma: no cover - non-Linux
-            _cpus = os.cpu_count() or 2
-        # Measured at 100M reads on a 4-core host: 3 readers beat 2
-        # (143 vs 165 s end to end) and, once rendering/inserts moved
-        # off the critical path, 4 beat 3 in interleaved reps (165 vs
-        # 177, 144 vs 253) — the scan threads tolerate sharing cores
-        # with the inflate/accumulate workers better than they tolerate
-        # idling.
-        n_readers = int(os.environ.get("FASTQDEDUP_INGEST_READERS", "0")) \
-            or max(1, min(4, _cpus))
-    else:
-        n_readers = 1
-    if nproc > 1 and not sharded_input \
-            and os.environ.get("FASTQDEDUP_RANGE_INPUT", "1") != "0":
-        planned = _plan_input_ranges(input_files, pid, nproc,
-                                     n_parts=n_readers)
-        if planned:
-            if len(planned) > 1:
-                parallel_parts = planned
-                # Pass 3's re-stream layout reads serially; give it the
-                # whole host window (parts are contiguous, so part 0's
-                # start/skip plus the summed record budget IS the
-                # window).  Pass 1 ignores range_plan while
-                # parallel_parts is set.
-                _total = sum(p[0][0][2] for p in planned)
-                range_plan = [(start, skip, _total)
-                              for (start, skip, _n) in planned[0][0]]
-                range_base = planned[0][1]
-            else:
-                range_plan, range_base = planned[0]
-            logger.debug(
-                "byte-range ingest: host %d/%d parses records "
-                "[%d, %d) per file across %d reader(s)", pid, nproc,
-                planned[0][1],
-                planned[-1][1] + planned[-1][0][0][2], len(planned))
-    elif (nproc == 1 or sharded_input) and n_readers > 1:
-        parallel_parts = _plan_local_ranges(input_files, n_readers)
-        if parallel_parts is not None:
-            logger.debug("parallel ingest: %d range readers",
-                         len(parallel_parts))
-    # Record-arena mode (single host, native accumulator): render each
-    # new key's first record during pass 1 and skip both the chunk cache
-    # and pass 3's re-stream entirely.  Memory: O(unique keys) rendered
-    # bytes instead of O(records) cached chunks.
-    record_store: Optional[_RecordArenaStore] = None
-    recycle_bin: Optional[List[np.ndarray]] = None
-    if hasattr(accumulator, "add_mark") \
-            and os.environ.get("FASTQDEDUP_RECORD_ARENA", "1") != "0":
-        # Multi-host included: each host's arena holds ITS chunks' local
-        # first occurrences; every kept key's GLOBAL first position lives
-        # in exactly one host's arena (positions partition across hosts).
-        record_store = _RecordArenaStore(len(input_files), memory_budget)
-        cached_chunks = None
-        recycle_bin = []
-    accumulate_pool = ThreadPoolExecutor(max_workers=1)
-    quality_pool = ThreadPoolExecutor(max_workers=1) \
-        if filter_on_quality else None
-    # Arena renders overlap the next chunk's C inserts on their own
-    # worker; both are single-threaded FIFO so part order and recycle
-    # order stay serial.
-    render_pool = ThreadPoolExecutor(max_workers=1) \
-        if record_store is not None else None
-    render_futures: List = []
-    accumulate_futures = []
-    global_base = 0
-    prewarm_started = False
-    _p1 = {"iter": 0.0, "cache": 0.0, "keys": 0.0, "submit": 0.0}
-    _p1_debug = logger.isEnabledFor(logging.DEBUG)
-    if parallel_parts is not None:
-        _chunk_iter: Iterator = iter(_parallel_range_chunks(
-            input_files, chunk_records, parallel_parts))
-    else:
-        _chunk_iter = iter(_zip_chunks(input_files, chunk_records,
-                                       range_plan=range_plan))
-    chunk_index = -1
-    try:
-        while True:
-            _t = _time.perf_counter()
-            item = next(_chunk_iter, None)
-            _p1["iter"] += _time.perf_counter() - _t
-            if item is None:
-                break
-            chunk_index += 1
-            if parallel_parts is not None:
-                part_base, chunks = item
-                base = shard_base + part_base
-                global_base += chunks[0].count
-            else:
-                chunks = item
-                base = shard_base + range_base + global_base
-                global_base += chunks[0].count
-                if range_plan is None and not sharded_input \
-                        and chunk_index % nproc != pid:
-                    continue  # another host owns this chunk (strided mode)
-            if len(chunks) > 1:
-                _validate_mates(chunks)
-            _t = _time.perf_counter()
-            if cached_chunks is not None:
-                cached_bytes += sum(
-                    len(c.sequences) + len(c.qualities) + len(c.headers)
-                    + c.offsets.nbytes + c.header_offsets.nbytes
-                    for c in chunks)
-                if cached_bytes > memory_budget:
-                    cached_chunks = None
-                elif cached_bytes > (2 << 30) and _fault_cost_too_high():
-                    # Holding the cache means creating fresh anon pages for
-                    # every chunk; on hosts with lazily-backed guest memory
-                    # page creation measures 2-10 s/GiB (and grows with RSS)
-                    # while re-streaming the page-cached input costs well
-                    # under 1 s/GiB of payload.  Measured here: dropping a
-                    # 21 GiB cache turned a 259 s 100M-read run into 197 s.
-                    logger.debug(
-                        "dropping chunk cache: measured page-fault cost "
-                        "%.1f s/GiB makes re-streaming cheaper",
-                        _observed_fault_cost_cached())
-                    cached_chunks = None
+    with trace.span("pass1"):
+        accumulator = _make_key_accumulator()
+        # Default multi-host mode: byte-range BGZF splitting — each host
+        # inflates and parses only its 1/P record range (exact global record
+        # ordinals from a newline-count exchange).  Falls back to strided
+        # chunk ownership (parse everything, keep 1/P) for non-BGZF inputs.
+        range_plan = None
+        range_base = 0
+        # Parallel range ingest (within one host): the native parser's record
+        # scan is single-threaded per reader, so once inflate overlaps, the
+        # scan bounds pass-1 throughput.  Splitting this host's record window
+        # into concurrent BGZF range readers multiplies scan throughput by
+        # the reader count.  Chunks then arrive out of position order; every
+        # consumer is position-keyed (see _parallel_range_chunks).
+        parallel_parts = None
+        if os.environ.get("FASTQDEDUP_PARALLEL_INGEST", "1") != "0":
+            try:
+                _cpus = len(os.sched_getaffinity(0))  # respects core pinning
+            except (AttributeError, OSError):  # pragma: no cover - non-Linux
+                _cpus = os.cpu_count() or 2
+            # Measured at 100M reads on a 4-core host: 3 readers beat 2
+            # (143 vs 165 s end to end) and, once rendering/inserts moved
+            # off the critical path, 4 beat 3 in interleaved reps (165 vs
+            # 177, 144 vs 253) — the scan threads tolerate sharing cores
+            # with the inflate/accumulate workers better than they tolerate
+            # idling.
+            n_readers = int(os.environ.get("FASTQDEDUP_INGEST_READERS", "0")) \
+                or max(1, min(4, _cpus))
+        else:
+            n_readers = 1
+        if nproc > 1 and not sharded_input \
+                and os.environ.get("FASTQDEDUP_RANGE_INPUT", "1") != "0":
+            with trace.span("pass1.plan"):
+                planned = _plan_input_ranges(input_files, pid, nproc,
+                                             n_parts=n_readers)
+            if planned:
+                if len(planned) > 1:
+                    parallel_parts = planned
+                    # Pass 3's re-stream layout reads serially; give it the
+                    # whole host window (parts are contiguous, so part 0's
+                    # start/skip plus the summed record budget IS the
+                    # window).  Pass 1 ignores range_plan while
+                    # parallel_parts is set.
+                    _total = sum(p[0][0][2] for p in planned)
+                    range_plan = [(start, skip, _total)
+                                  for (start, skip, _n) in planned[0][0]]
+                    range_base = planned[0][1]
                 else:
-                    # Compact before caching: the parser's chunks are views
-                    # into fixed-capacity buffers sized by a per-record byte
-                    # estimate; holding the views would pin several times the
-                    # actual payload.
-                    cached_chunks.append((base, tuple(
-                        _compact_chunk(c) for c in chunks)))
-            _now = _time.perf_counter()
-            _p1["cache"] += _now - _t
-            _t = _now
-            key_data, key_offsets, qual_data, qual_offsets = _chunk_keys(
-                chunks, check_slices, use_qualities=filter_on_quality)
-            _p1["keys"] += _time.perf_counter() - _t
-            if not prewarm_started and max_distance > 0 \
-                    and global_base >= 100_000:
-                # Bring the card up while pass 1 is still parsing: the
-                # CUDA context, the kernel library and each kernel's
-                # first launch (warmup.py).  None on the CPU device.
-                # Small inputs never reach the device (the engine's host
-                # path covers them), so they skip this.
-                prewarm_started = True
-                from .warmup import prewarm_async
-                thread = prewarm_async(
-                    int(key_offsets[1] - key_offsets[0]),
-                    max_distance=max_distance,
-                    use_edit_distance=use_edit_distance)
-                if thread is not None:
-                    prewarm.append(thread)
-            b = chunks[0].count
-            total_records += b
-            _t = _time.perf_counter()
-            mask_future = quality_pool.submit(
-                _quality_mask, qual_data, qual_offsets,
-                max_average_error_rate) if quality_pool is not None else None
-            accumulate_futures.append(accumulate_pool.submit(
-                _filter_and_accumulate, accumulator, key_data, key_offsets,
-                mask_future, b, base, record_store, chunks, recycle_bin,
-                chunk_index, render_pool, render_futures))
-            _p1["submit"] += _time.perf_counter() - _t
+                    range_plan, range_base = planned[0]
+                logger.debug(
+                    "byte-range ingest: host %d/%d parses records "
+                    "[%d, %d) per file across %d reader(s)", pid, nproc,
+                    planned[0][1],
+                    planned[-1][1] + planned[-1][0][0][2], len(planned))
+        elif (nproc == 1 or sharded_input) and n_readers > 1:
+            with trace.span("pass1.plan"):
+                parallel_parts = _plan_local_ranges(input_files, n_readers)
+            if parallel_parts is not None:
+                logger.debug("parallel ingest: %d range readers",
+                             len(parallel_parts))
+        # Record-arena mode (single host, native accumulator): render each
+        # new key's first record during pass 1 and skip both the chunk cache
+        # and pass 3's re-stream entirely.  Memory: O(unique keys) rendered
+        # bytes instead of O(records) cached chunks.
+        record_store: Optional[_RecordArenaStore] = None
+        recycle_bin: Optional[List[np.ndarray]] = None
+        if hasattr(accumulator, "add_mark") \
+                and os.environ.get("FASTQDEDUP_RECORD_ARENA", "1") != "0":
+            # Multi-host included: each host's arena holds ITS chunks' local
+            # first occurrences; every kept key's GLOBAL first position lives
+            # in exactly one host's arena (positions partition across hosts).
+            record_store = _RecordArenaStore(len(input_files), memory_budget)
+            cached_chunks = None
+            recycle_bin = []
+        accumulate_pool = ThreadPoolExecutor(max_workers=1)
+        quality_pool = ThreadPoolExecutor(max_workers=1) \
+            if filter_on_quality else None
+        # Arena renders overlap the next chunk's C inserts on their own
+        # worker; both are single-threaded FIFO so part order and recycle
+        # order stay serial.
+        render_pool = ThreadPoolExecutor(max_workers=1) \
+            if record_store is not None else None
+        render_futures: List = []
+        accumulate_futures = []
+        global_base = 0
+        prewarm_started = False
+        if parallel_parts is not None:
+            _chunk_iter: Iterator = iter(_parallel_range_chunks(
+                input_files, chunk_records, parallel_parts))
+        else:
+            _chunk_iter = iter(_zip_chunks(input_files, chunk_records,
+                                           range_plan=range_plan))
+        chunk_index = -1
+        try:
+            while True:
+                with trace.span("pass1.read"):
+                    item = next(_chunk_iter, None)
+                if item is None:
+                    break
+                chunk_index += 1
+                if parallel_parts is not None:
+                    part_base, chunks = item
+                    base = shard_base + part_base
+                    global_base += chunks[0].count
+                else:
+                    chunks = item
+                    base = shard_base + range_base + global_base
+                    global_base += chunks[0].count
+                    if range_plan is None and not sharded_input \
+                            and chunk_index % nproc != pid:
+                        continue  # another host owns this chunk (strided mode)
+                if len(chunks) > 1:
+                    _validate_mates(chunks)
+                if cached_chunks is not None:
+                    cached_bytes += sum(
+                        len(c.sequences) + len(c.qualities) + len(c.headers)
+                        + c.offsets.nbytes + c.header_offsets.nbytes
+                        for c in chunks)
+                    if cached_bytes > memory_budget:
+                        cached_chunks = None
+                    elif cached_bytes > (2 << 30) and _fault_cost_too_high():
+                        # Holding the cache means creating fresh anon pages
+                        # for every chunk; on hosts with lazily-backed guest
+                        # memory page creation measures 2-10 s/GiB (and
+                        # grows with RSS) while re-streaming the page-cached
+                        # input costs well under 1 s/GiB of payload.
+                        # Measured here: dropping a 21 GiB cache turned a
+                        # 259 s 100M-read run into 197 s.
+                        logger.debug(
+                            "dropping chunk cache: measured page-fault cost "
+                            "%.1f s/GiB makes re-streaming cheaper",
+                            _observed_fault_cost_cached())
+                        cached_chunks = None
+                    else:
+                        # Compact before caching: the parser's chunks are
+                        # views into fixed-capacity buffers sized by a
+                        # per-record byte estimate; holding the views would
+                        # pin several times the actual payload.
+                        cached_chunks.append((base, tuple(
+                            _compact_chunk(c) for c in chunks)))
+                with trace.span("pass1.keys"):
+                    key_data, key_offsets, qual_data, qual_offsets = \
+                        _chunk_keys(chunks, check_slices,
+                                    use_qualities=filter_on_quality)
+                if not prewarm_started and max_distance > 0 \
+                        and global_base >= 100_000:
+                    # Bring the card up while pass 1 is still parsing: the
+                    # CUDA context, the kernel library and each kernel's
+                    # first launch (warmup.py).  None on the CPU device.
+                    # Small inputs never reach the device (the engine's host
+                    # path covers them), so they skip this.
+                    prewarm_started = True
+                    from .warmup import prewarm_async
+                    thread = prewarm_async(
+                        int(key_offsets[1] - key_offsets[0]),
+                        max_distance=max_distance,
+                        use_edit_distance=use_edit_distance)
+                    if thread is not None:
+                        prewarm.append(thread)
+                b = chunks[0].count
+                total_records += b
+                trace.count("records.read", b)
+                mask_future = quality_pool.submit(
+                    trace.carry(_quality_mask), qual_data, qual_offsets,
+                    max_average_error_rate) \
+                    if quality_pool is not None else None
+                accumulate_futures.append(accumulate_pool.submit(
+                    trace.carry(_filter_and_accumulate), accumulator, key_data,
+                    key_offsets, mask_future, b, base, record_store, chunks,
+                    recycle_bin, chunk_index, render_pool, render_futures))
 
-        _t = _time.perf_counter()
-        for future in accumulate_futures:
-            b, kept = future.result()  # propagate any accumulation error
-            total_kept += kept
-            discarded_records += b - kept
-        for future in render_futures:
-            future.result()  # propagate any arena render error
-        accumulate_pool.shutdown()
-        if render_pool is not None:
-            render_pool.shutdown()
-        if quality_pool is not None:
-            quality_pool.shutdown()
-    finally:
-        # An exception anywhere in pass 1 (parse error, mate
-        # desync, quality range error re-raised from a worker)
-        # must not leak the worker pools' threads.
-        accumulate_pool.shutdown(wait=False, cancel_futures=True)
-        if render_pool is not None:
-            render_pool.shutdown(wait=False, cancel_futures=True)
-        if quality_pool is not None:
-            quality_pool.shutdown(wait=False, cancel_futures=True)
-    if recycle_bin:
-        # Drop this frame's references to the final chunk tuple (the loop
-        # variables outlive the loop) so its parse buffers recycle too.
-        key_data = key_offsets = qual_data = qual_offsets = None
-        mask_future = None
-        item = chunks = None  # FastqChunk views pin the parse buffers
-        from .runtime import release
-        # pop() before release: iterating leaves both the list entry and
-        # the loop variable alive during the call, which trips the
-        # refcount gate for entries that are base arrays.
-        while recycle_bin:
-            release(recycle_bin.pop())
-    if parallel_parts is not None and cached_chunks:
-        # Range readers interleave arbitrarily; pass 3 walks the cache in
-        # file order.
-        cached_chunks.sort(key=lambda entry: entry[0])
-    if _p1_debug:
-        _p1["acc-wait"] = _time.perf_counter() - _t
-        logger.debug("pass1 totals: " + ", ".join(
-            f"{k}={v:.2f}s" for k, v in _p1.items()))
+            with trace.span("pass1.drain"):
+                for future in accumulate_futures:
+                    # Raises what the accumulation raised.
+                    b, kept = future.result()
+                    total_kept += kept
+                    discarded_records += b - kept
+                for future in render_futures:
+                    future.result()  # propagate any arena render error
+                accumulate_pool.shutdown()
+                if render_pool is not None:
+                    render_pool.shutdown()
+                if quality_pool is not None:
+                    quality_pool.shutdown()
+            trace.count("records.filtered", discarded_records)
+        finally:
+            # An exception anywhere in pass 1 (parse error, mate
+            # desync, quality range error re-raised from a worker)
+            # must not leak the worker pools' threads.
+            accumulate_pool.shutdown(wait=False, cancel_futures=True)
+            if render_pool is not None:
+                render_pool.shutdown(wait=False, cancel_futures=True)
+            if quality_pool is not None:
+                quality_pool.shutdown(wait=False, cancel_futures=True)
+        if recycle_bin:
+            # Drop this frame's references to the final chunk tuple (the loop
+            # variables outlive the loop) so its parse buffers recycle too.
+            key_data = key_offsets = qual_data = qual_offsets = None
+            mask_future = None
+            item = chunks = None  # FastqChunk views pin the parse buffers
+            from .runtime import release
+            # pop() before release: iterating leaves both the list entry and
+            # the loop variable alive during the call, which trips the
+            # refcount gate for entries that are base arrays.
+            while recycle_bin:
+                release(recycle_bin.pop())
+        if parallel_parts is not None and cached_chunks:
+            # Range readers interleave arbitrarily; pass 3 walks the cache in
+            # file order.
+            cached_chunks.sort(key=lambda entry: entry[0])
 
     if nproc > 1:
         total_records, total_kept, discarded_records = sum_scalars(
@@ -1412,70 +1414,60 @@ def _deduplicate_cluster_impl(
     # In multi-host runs each host contributes its partial key table; one
     # padded all-gather merges them and the finalize step collapses keys
     # seen by several hosts (summing counts, min-ing first positions).
-    phase_timer = Timer()
-
-    def debug_phase(name: str) -> None:
-        if logger.isEnabledFor(logging.DEBUG):
-            logger.debug(f"pass2/{name}: {phase_timer.get_difference()}")
-
-    collapsed = getattr(accumulator, "collapsed", False)
-    byte_presence: Optional[np.ndarray] = None
-    if collapsed and hasattr(accumulator, "byte_presence"):
-        # Collected at insertion during pass 1; saves every host the
-        # alphabet rescan of the merged key table.
-        byte_presence = accumulator.byte_presence()
-        if nproc > 1:
-            from .parallel.distributed import or_byte_presence
-            byte_presence = or_byte_presence(byte_presence)
-    if nproc > 1 and collapsed:
-        # The native accumulator already computed a content hash per
-        # key; exporting it (one O(capacity) sweep) and gathering it as
-        # an extra column means no host ever re-hashes the gathered
-        # table — the O(bytes) hashing happened shard-local, during
-        # pass 1.
-        kd, ko, kc, kp = accumulator.export()
-        debug_phase("finalize/export")
-        h1 = accumulator.export_hashes()
-        from .native.loader import hash_ragged_native
-        h2 = hash_ragged_native(kd, ko, seed=0xA5B35705F1E2D3C4)
-        debug_phase("finalize/local-hash")
-        # Metadata-first exchange: 40 B/row of metadata gathers, each
-        # host merges only the keys it owns, and every unique key's
-        # payload crosses the wire exactly once — ~2x less traffic than
-        # gathering every host's full table, with all merge work
-        # sharded 1/P (parallel/distributed.py).
-        from .parallel.distributed import exchange_merge_key_tables
-        kd2, ko2, kc2, kp2 = exchange_merge_key_tables(
-            kd, ko, kc, kp, h1, h2,
-            progress=lambda name: debug_phase(f"finalize/{name}"))
-        # The local export is fully represented in the merged table now;
-        # recycle its pooled buffers (refcount-gated no-ops if the
-        # accumulator still references them).
-        from .runtime import release as _release
-        for _buf in (kd, ko, kc, kp, h1, h2):
-            _release(_buf)
-        del kd, ko, kc, kp, h1, h2, _buf
-        groups = _finalize_groups(kd2, ko2, kc2, kp2, pre_merged=True)
-        # The uniform-length fast path aliases the merged columns into
-        # ``groups`` instead of copying; drop this frame's references so
-        # groups.dispose() can recycle them at the end of the run.
-        del kd2, ko2, kc2, kp2
-        debug_phase("finalize/group")
-    else:
-        kd, ko, kc, kp = allgather_key_tables(*accumulator.export())
-        groups = _finalize_groups(
-            kd, ko, kc, kp, single_table=(nproc == 1 and collapsed))
-        # Recycle whichever export columns _finalize_groups did NOT
-        # alias into ``groups`` (the refcount gate makes release a no-op
-        # for aliased ones — those recycle at groups.dispose()).  The
-        # offsets column in particular is never aliased, and without
-        # this it re-faulted 240 MiB per run at 100M reads.
-        from .runtime import release as _release
-        for _buf in (kd, ko, kc, kp):
-            _release(_buf)
-        del kd, ko, kc, kp, _buf
-    accumulator.close()
-    debug_phase("finalize-key-tables")
+    with trace.span("pass2.finalize"):
+        collapsed = getattr(accumulator, "collapsed", False)
+        byte_presence: Optional[np.ndarray] = None
+        if collapsed and hasattr(accumulator, "byte_presence"):
+            # Collected at insertion during pass 1; saves every host the
+            # alphabet rescan of the merged key table.
+            byte_presence = accumulator.byte_presence()
+            if nproc > 1:
+                from .parallel.distributed import or_byte_presence
+                byte_presence = or_byte_presence(byte_presence)
+        if nproc > 1 and collapsed:
+            # The native accumulator already computed a content hash per
+            # key; exporting it (one O(capacity) sweep) and gathering it as
+            # an extra column means no host ever re-hashes the gathered
+            # table — the O(bytes) hashing happened shard-local, during
+            # pass 1.
+            kd, ko, kc, kp = accumulator.export()
+            h1 = accumulator.export_hashes()
+            from .native.loader import hash_ragged_native
+            h2 = hash_ragged_native(kd, ko, seed=0xA5B35705F1E2D3C4)
+            # Metadata-first exchange: 40 B/row of metadata gathers, each
+            # host merges only the keys it owns, and every unique key's
+            # payload crosses the wire exactly once — ~2x less traffic than
+            # gathering every host's full table, with all merge work
+            # sharded 1/P (parallel/distributed.py).
+            from .parallel.distributed import exchange_merge_key_tables
+            kd2, ko2, kc2, kp2 = exchange_merge_key_tables(
+                kd, ko, kc, kp, h1, h2)
+            # The local export is fully represented in the merged table now;
+            # recycle its pooled buffers (refcount-gated no-ops if the
+            # accumulator still references them).
+            from .runtime import release as _release
+            for _buf in (kd, ko, kc, kp, h1, h2):
+                _release(_buf)
+            del kd, ko, kc, kp, h1, h2, _buf
+            groups = _finalize_groups(kd2, ko2, kc2, kp2, pre_merged=True)
+            # The uniform-length fast path aliases the merged columns into
+            # ``groups`` instead of copying; drop this frame's references so
+            # groups.dispose() can recycle them at the end of the run.
+            del kd2, ko2, kc2, kp2
+        else:
+            kd, ko, kc, kp = allgather_key_tables(*accumulator.export())
+            groups = _finalize_groups(
+                kd, ko, kc, kp, single_table=(nproc == 1 and collapsed))
+            # Recycle whichever export columns _finalize_groups did NOT
+            # alias into ``groups`` (the refcount gate makes release a no-op
+            # for aliased ones — those recycle at groups.dispose()).  The
+            # offsets column in particular is never aliased, and without
+            # this it re-faulted 240 MiB per run at 100M reads.
+            from .runtime import release as _release
+            for _buf in (kd, ko, kc, kp):
+                _release(_buf)
+            del kd, ko, kc, kp, _buf
+        accumulator.close()
     if logger.isEnabledFor(logging.DEBUG):
         # Analog of the reference's DEBUG trie stats during pass 1
         # (__init__.py:260-264): per-length unique-key table sizes.
@@ -1488,282 +1480,298 @@ def _deduplicate_cluster_impl(
                          f"{nbytes / (1024 ** 3):.3f} GiB")
         logger.debug(f"Key tables total: {groups.n} unique keys, "
                      f"{total_bytes / (1024 ** 3):.3f} GiB")
-    while prewarm:
-        prewarm.pop().join()  # raises what the thread's work raised
+    if prewarm:
+        with trace.span("warmup.join"):
+            while prewarm:
+                prewarm.pop().join()  # raises what the thread's work raised
     part = build_partition_groups(groups, max_distance, use_edit_distance,
                                   shard=(pid, nproc),
                                   byte_presence=byte_presence)
-    debug_phase("partition")
-    counts_arr = groups.counts_concat()
-    sizes = part.sizes()
-    method_name = _method_name_for(cluster_dissection_func)
-    number_of_clusters = part.num_clusters
+    with trace.span("pass2.dissect"):
+        counts_arr = groups.counts_concat()
+        sizes = part.sizes()
+        method_name = _method_name_for(cluster_dissection_func)
+        number_of_clusters = part.num_clusters
 
-    # Kept keys as per-group boolean masks over the sorted unique arrays
-    # (clusters are disjoint, so each key is decided exactly once); pass 3
-    # claims first occurrences against these masks — no Python bytes.
-    kept_mask = [np.zeros(len(c), dtype=bool) for c in groups.counts]
-    # Single length group (the common case): key index == row index, so
-    # the ~n-sized searchsorted map and per-call np.unique grouping are
-    # skipped entirely — they are replicated on every host at P>1.
-    single_group = len(groups.lengths) == 1
-    group_of_key = None if single_group else np.searchsorted(
-        groups.starts, np.arange(groups.n, dtype=np.int64),
-        side="right") - 1
+        # Kept keys as per-group boolean masks over the sorted unique
+        # arrays (clusters are disjoint, so each key is decided exactly
+        # once); pass 3 claims first occurrences against these masks — no
+        # Python bytes.
+        kept_mask = [np.zeros(len(c), dtype=bool) for c in groups.counts]
+        # Single length group (the common case): key index == row index,
+        # so the ~n-sized searchsorted map and per-call np.unique grouping
+        # are skipped entirely — they are replicated on every host at P>1.
+        single_group = len(groups.lengths) == 1
+        group_of_key = None if single_group else np.searchsorted(
+            groups.starts, np.arange(groups.n, dtype=np.int64),
+            side="right") - 1
 
-    def member_bytes(members: np.ndarray) -> np.ndarray:
-        """Raw key bytes of ``members`` as a zero-padded uint8 matrix —
-        zero-padding makes row-wise lexicographic comparison match Python
-        str order across mixed lengths (shorter prefix sorts first)."""
-        if single_group:
-            length = groups.lengths[0]
-            if not length:
-                return np.zeros((len(members), 1), dtype=np.uint8)
-            return groups.voids[0][members].view(np.uint8).reshape(
-                len(members), length)
-        g = group_of_key[members]
-        rows = members - groups.starts[g]
-        width = max(max((groups.lengths[int(gi)]
-                         for gi in np.unique(g)), default=1), 1)
-        padded = np.zeros((len(members), width), dtype=np.uint8)
-        for gi in np.unique(g):
-            length = groups.lengths[int(gi)]
-            sel = np.flatnonzero(g == gi)
-            if length:
-                raw = groups.voids[int(gi)][rows[sel]].view(np.uint8)
-                padded[sel, :length] = raw.reshape(len(sel), length)
-        return padded
+        def member_bytes(members: np.ndarray) -> np.ndarray:
+            """Raw key bytes of ``members`` as a zero-padded uint8 matrix
+            — zero-padding makes row-wise lexicographic comparison match
+            Python str order across mixed lengths (shorter prefix sorts
+            first)."""
+            if single_group:
+                length = groups.lengths[0]
+                if not length:
+                    return np.zeros((len(members), 1), dtype=np.uint8)
+                return groups.voids[0][members].view(np.uint8).reshape(
+                    len(members), length)
+            g = group_of_key[members]
+            rows = members - groups.starts[g]
+            width = max(max((groups.lengths[int(gi)]
+                             for gi in np.unique(g)), default=1), 1)
+            padded = np.zeros((len(members), width), dtype=np.uint8)
+            for gi in np.unique(g):
+                length = groups.lengths[int(gi)]
+                sel = np.flatnonzero(g == gi)
+                if length:
+                    raw = groups.voids[int(gi)][rows[sel]].view(np.uint8)
+                    padded[sel, :length] = raw.reshape(len(sel), length)
+            return padded
 
-    def mark_indices(idx: np.ndarray) -> None:
-        if single_group:
-            kept_mask[0][idx] = True
-            return
-        g = group_of_key[idx]
-        rows = idx - groups.starts[g]
-        for gi in np.unique(g):
-            kept_mask[gi][rows[g == gi]] = True
+        def mark_indices(idx: np.ndarray) -> None:
+            if single_group:
+                kept_mask[0][idx] = True
+                return
+            g = group_of_key[idx]
+            rows = idx - groups.starts[g]
+            for gi in np.unique(g):
+                kept_mask[gi][rows[g == gi]] = True
 
-    key_row_maps: Dict[int, Dict[bytes, int]] = {}
+        key_row_maps: Dict[int, Dict[bytes, int]] = {}
 
-    def mark_key_bytes(key: bytes) -> None:
-        # A user-supplied dissection strategy may yield a string that is
-        # not one of the cluster's keys; the reference tolerated that
-        # (unknown hashes simply never matched in pass 3,
-        # __init__.py:203-206), so unknown keys are skipped, not marked.
-        # Lookup goes through a lazily built per-group dict (group order
-        # may be hash-based, so binary search does not apply); this path
-        # serves only custom dissection strategies.
-        g = groups.group_index_of_length(len(key))
-        if g is None:
-            logger.debug("dissection yielded unknown key of length "
-                         f"{len(key)}; ignored")
-            return
-        if len(key) == 0:
-            if len(kept_mask[g]):
-                kept_mask[g][0] = True
-            return
-        rows_map = key_row_maps.get(g)
-        if rows_map is None:
-            raw = groups.voids[g].tobytes()
-            length = groups.lengths[g]
-            rows_map = {raw[i * length:(i + 1) * length]: i
-                        for i in range(len(groups.counts[g]))}
-            key_row_maps[g] = rows_map
-        row = rows_map.get(key)
-        if row is None:
-            logger.debug("dissection yielded unknown key; ignored")
-            return
-        kept_mask[g][row] = True
+        def mark_key_bytes(key: bytes) -> None:
+            # A user-supplied dissection strategy may yield a string that
+            # is not one of the cluster's keys; the reference tolerated
+            # that (unknown hashes simply never matched in pass 3,
+            # __init__.py:203-206), so unknown keys are skipped, not
+            # marked.  Lookup goes through a lazily built per-group dict
+            # (group order may be hash-based, so binary search does not
+            # apply); this path serves only custom dissection strategies.
+            g = groups.group_index_of_length(len(key))
+            if g is None:
+                logger.debug("dissection yielded unknown key of length "
+                             f"{len(key)}; ignored")
+                return
+            if len(key) == 0:
+                if len(kept_mask[g]):
+                    kept_mask[g][0] = True
+                return
+            rows_map = key_row_maps.get(g)
+            if rows_map is None:
+                raw = groups.voids[g].tobytes()
+                length = groups.lengths[g]
+                rows_map = {raw[i * length:(i + 1) * length]: i
+                            for i in range(len(groups.counts[g]))}
+                key_row_maps[g] = rows_map
+            row = rows_map.get(key)
+            if row is None:
+                logger.debug("dissection yielded unknown key; ignored")
+                return
+            kept_mask[g][row] = True
 
-    # Singleton components (the bulk): kept wholesale, no dissection.
-    if single_group and len(part.cluster_of) == groups.n:
-        # Vectorized: key row i is a singleton iff its cluster has one
-        # member — a sequential gather+compare instead of a ~n-sized
-        # random scatter (this mark is inherently global on every host).
-        np.logical_or(kept_mask[0], sizes[part.cluster_of] == 1,
-                      out=kept_mask[0])
-    else:
-        mark_indices(part.order[part.starts[sizes == 1]])
-    debug_phase("singletons")
-
-    # Built-in methods at P>1: per-cluster dissection work (two-member
-    # closed form AND the big-cluster paths below) shards across hosts by
-    # cluster index; the kept key indices merge through ONE combined
-    # all-gather at the end.  A user-supplied strategy instead runs
-    # identically on every host (determinism is its documented contract).
-    distribute = nproc > 1 and method_name is not None
-    kept_local: List[np.ndarray] = []
-
-    if method_name is not None:
-        # Two-member components, closed form: connectivity implies the
-        # single within-distance edge exists, so adjacency/highest_count
-        # keep only the max (count, key); directional also keeps the minor
-        # read unless the count gate 2*c - 1 <= count(origin) absorbs it
-        # (reference __init__.py:84,99-101).  Count ties break on key
-        # bytes (== latin-1 string order), fetched only when needed.
-        pair_starts = part.starts[sizes == 2]
-        if distribute:
-            pair_starts = pair_starts[pid::nproc]
-        a_idx = part.order[pair_starts]
-        b_idx = part.order[pair_starts + 1]
-        ca = counts_arr[a_idx]
-        cb = counts_arr[b_idx]
-        hi_idx = np.where(ca > cb, a_idx, b_idx)
-        lo_idx = np.where(ca > cb, b_idx, a_idx)
-        ties = np.flatnonzero(ca == cb)
-        if len(ties):
-            # Count ties are the COMMON case (two count-1 variants), so
-            # the string tie-break is vectorized: first differing byte
-            # decides (keys are distinct, so one always exists — for a
-            # strict-prefix pair, edit mode only, the zero pad loses to
-            # any real byte, matching Python str order).  One combined
-            # call so both sides share the same pad width (edit-mode
-            # pairs can mix lengths).
-            both = member_bytes(np.concatenate([a_idx[ties],
-                                                b_idx[ties]]))
-            av = both[:len(ties)]
-            bv = both[len(ties):]
-            neq = av != bv
-            first = np.argmax(neq, axis=1)
-            sel = np.arange(len(ties))
-            a_wins = av[sel, first] > bv[sel, first]
-            swap = ties[a_wins]
-            hi_idx[swap] = a_idx[swap]
-            lo_idx[swap] = b_idx[swap]
-        if distribute:
-            kept_local.append(hi_idx)
-        else:
-            mark_indices(hi_idx)
-        if method_name == "directional":
-            hi_c = counts_arr[hi_idx]
-            lo_c = counts_arr[lo_idx]
-            lo_kept = lo_idx[2 * lo_c - 1 > hi_c]
-            if distribute:
-                kept_local.append(lo_kept)
+        with trace.span("dissect.singletons"):
+            # Singleton components (the bulk): kept wholesale, no
+            # dissection.
+            if single_group and len(part.cluster_of) == groups.n:
+                # Vectorized: key row i is a singleton iff its cluster has
+                # one member — a sequential gather+compare instead of a
+                # ~n-sized random scatter (this mark is inherently global
+                # on every host).
+                np.logical_or(kept_mask[0], sizes[part.cluster_of] == 1,
+                              out=kept_mask[0])
             else:
-                mark_indices(lo_kept)
-        big = np.flatnonzero(sizes >= 3)
-        debug_phase("two-member-closed-form")
-    else:
-        big = np.flatnonzero(sizes >= 2)
+                mark_indices(part.order[part.starts[sizes == 1]])
 
-    if len(big):
-        # Group the edge list by cluster once (sort + searchsorted spans).
-        edge_cluster = part.cluster_of[part.edges_i]
-        edge_order = np.argsort(edge_cluster, kind="stable")
-        debug_phase("edge-grouping")
-        sorted_ec = edge_cluster[edge_order]
-        el_i = part.local_index[part.edges_i[edge_order]]
-        el_j = part.local_index[part.edges_j[edge_order]]
-        span_starts = np.searchsorted(sorted_ec, big)
-        span_ends = np.searchsorted(sorted_ec, big + 1)
-        def member_rank(members: np.ndarray) -> np.ndarray:
-            """int64 [m] ascending lexicographic rank of the members' raw
-            key strings (shorter-prefix-first across mixed lengths, i.e.
-            Python str order, via zero-padded byte rows).  Threaded C
-            sample sort when available (5-10x numpy's void argsort at
-            millions of members); members are distinct keys, so the
-            memcmp order is total either way."""
-            padded = np.ascontiguousarray(member_bytes(members))
-            try:
-                from .native.loader import rank_rows_native
-                return rank_rows_native(padded)
-            except (ImportError, ValueError):
-                pass
-            void = padded.view(
-                np.dtype((np.void, padded.shape[1]))).ravel()
-            rank = np.empty(len(members), dtype=np.int64)
-            rank[np.argsort(void, kind="stable")] = \
-                np.arange(len(members), dtype=np.int64)
-            return rank
+        # Built-in methods at P>1: per-cluster dissection work (two-member
+        # closed form AND the big-cluster paths below) shards across hosts
+        # by cluster index; the kept key indices merge through ONE combined
+        # all-gather at the end.  A user-supplied strategy instead runs
+        # identically on every host (determinism is its documented
+        # contract).
+        distribute = nproc > 1 and method_name is not None
+        kept_local: List[np.ndarray] = []
 
-        def concat_spans(span_s: np.ndarray, lens: np.ndarray
-                         ) -> np.ndarray:
-            total = int(lens.sum())
-            offs = np.zeros(len(lens), dtype=np.int64)
-            np.cumsum(lens[:-1], out=offs[1:])
-            return np.repeat(span_s - offs, lens) + \
-                np.arange(total, dtype=np.int64)
-
-        big_sizes = part.ends[big] - part.starts[big]
-        owned = np.arange(len(big)) % nproc == pid if distribute \
-            else np.ones(len(big), dtype=bool)
-        # Clusters up to 64 members dissect TOGETHER in one lockstep
-        # vectorized pass (dissect_indices_batched): at production scale
-        # there are ~a million of them and per-cluster Python setup alone
-        # costs minutes.  Larger clusters use the per-cluster CSR path.
-        batch_mask = owned & (big_sizes <= 64) \
-            if method_name is not None else np.zeros(len(big), dtype=bool)
-        bsel = np.flatnonzero(batch_mask)
-        if len(bsel):
-            cl = big[bsel]
-            lens = big_sizes[bsel]
-            members_b = part.order[concat_spans(part.starts[cl], lens)]
-            elens = span_ends[bsel] - span_starts[bsel]
-            epos = concat_spans(span_starts[bsel], elens)
-            moffs = np.zeros(len(lens), dtype=np.int64)
-            np.cumsum(lens[:-1], out=moffs[1:])
-            eoff = np.repeat(moffs, elens)
-            padded = np.ascontiguousarray(member_bytes(members_b))
-            try:
-                from .native.loader import rank_rows_native
-                rank_b = rank_rows_native(padded)
-            except (ImportError, ValueError):
-                void_b = padded.view(
-                    np.dtype((np.void, padded.shape[1]))).ravel()
-                rank_b = np.empty(len(members_b), dtype=np.int64)
-                rank_b[np.argsort(void_b, kind="stable")] = \
-                    np.arange(len(members_b), dtype=np.int64)
-            kept_b = dissect_indices_batched(
-                method_name, counts_arr[members_b], rank_b, lens,
-                el_i[epos] + eoff, el_j[epos] + eoff)
-            kept_idx = members_b[kept_b]
-            if distribute:
-                kept_local.append(kept_idx)
-            else:
-                mark_indices(kept_idx)
-            debug_phase(f"batched-dissection ({len(bsel)} clusters, "
-                        f"{len(members_b)} members)")
-        for k in np.flatnonzero(owned & ~batch_mask):
-            c = big[k]
-            es, ee = span_starts[k], span_ends[k]
-            members = part.order[part.starts[c]:part.ends[c]]
-            if method_name is not None:
-                # Index-based vectorized dissection: no per-member Python
-                # tuples, CSR BFS instead of list scans — giant clusters
-                # (low-complexity libraries) stay near O(edges).
-                kept_idx = members[dissect_indices(
-                    method_name, counts_arr[members],
-                    member_rank(members), el_i[es:ee], el_j[es:ee])]
+        if method_name is not None:
+            with trace.span("dissect.two_member"):
+                # Two-member components, closed form: connectivity implies
+                # the single within-distance edge exists, so
+                # adjacency/highest_count keep only the max (count, key);
+                # directional also keeps the minor read unless the count
+                # gate 2*c - 1 <= count(origin) absorbs it (reference
+                # __init__.py:84,99-101).  Count ties break on key bytes
+                # (== latin-1 string order), fetched only when needed.
+                pair_starts = part.starts[sizes == 2]
                 if distribute:
-                    kept_local.append(kept_idx)
+                    pair_starts = pair_starts[pid::nproc]
+                a_idx = part.order[pair_starts]
+                b_idx = part.order[pair_starts + 1]
+                ca = counts_arr[a_idx]
+                cb = counts_arr[b_idx]
+                hi_idx = np.where(ca > cb, a_idx, b_idx)
+                lo_idx = np.where(ca > cb, b_idx, a_idx)
+                ties = np.flatnonzero(ca == cb)
+                if len(ties):
+                    # Count ties are the COMMON case (two count-1
+                    # variants), so the string tie-break is vectorized:
+                    # first differing byte decides (keys are distinct, so
+                    # one always exists — for a strict-prefix pair, edit
+                    # mode only, the zero pad loses to any real byte,
+                    # matching Python str order).  One combined call so
+                    # both sides share the same pad width (edit-mode pairs
+                    # can mix lengths).
+                    both = member_bytes(np.concatenate([a_idx[ties],
+                                                        b_idx[ties]]))
+                    av = both[:len(ties)]
+                    bv = both[len(ties):]
+                    neq = av != bv
+                    first = np.argmax(neq, axis=1)
+                    sel = np.arange(len(ties))
+                    a_wins = av[sel, first] > bv[sel, first]
+                    swap = ties[a_wins]
+                    hi_idx[swap] = a_idx[swap]
+                    lo_idx[swap] = b_idx[swap]
+                if distribute:
+                    kept_local.append(hi_idx)
                 else:
-                    mark_indices(kept_idx)
-                continue
-            # User-supplied strategy: scalar (count, str) oracle API.
-            cluster_list = [(int(counts_arr[i]),
-                             groups.key_bytes(int(i)).decode("latin-1"))
-                            for i in members]
-            chosen = list(cluster_dissection_func(
-                cluster_list, max_distance, use_edit_distance))
-            # dict.fromkeys: tolerate a custom strategy yielding repeats.
-            for string in dict.fromkeys(chosen):
-                mark_key_bytes(string.encode("latin-1"))
+                    mark_indices(hi_idx)
+                if method_name == "directional":
+                    hi_c = counts_arr[hi_idx]
+                    lo_c = counts_arr[lo_idx]
+                    lo_kept = lo_idx[2 * lo_c - 1 > hi_c]
+                    if distribute:
+                        kept_local.append(lo_kept)
+                    else:
+                        mark_indices(lo_kept)
+                big = np.flatnonzero(sizes >= 3)
+        else:
+            big = np.flatnonzero(sizes >= 2)
 
-    if distribute:
-        # One combined gather for the two-member AND big-cluster shards.
-        from .parallel.distributed import allgather_int64
-        kept_all = allgather_int64(np.concatenate(kept_local)
-                                   if kept_local
-                                   else np.empty(0, dtype=np.int64))
-        if len(kept_all):
-            mark_indices(kept_all)
+        if len(big):
+            with trace.span("dissect.batched"):
+                # Group the edge list by cluster once (sort +
+                # searchsorted spans).
+                edge_cluster = part.cluster_of[part.edges_i]
+                edge_order = np.argsort(edge_cluster, kind="stable")
+                sorted_ec = edge_cluster[edge_order]
+                el_i = part.local_index[part.edges_i[edge_order]]
+                el_j = part.local_index[part.edges_j[edge_order]]
+                span_starts = np.searchsorted(sorted_ec, big)
+                span_ends = np.searchsorted(sorted_ec, big + 1)
 
-    debug_phase("large-cluster-loop")
-    kept_total = int(sum(int(m.sum()) for m in kept_mask))
-    logger.info(f"Found {kept_total} distinct reads "
-                f"in {number_of_clusters} clusters."
-                f"({timer.get_difference()})")
+                def member_rank(members: np.ndarray) -> np.ndarray:
+                    """int64 [m] ascending lexicographic rank of the
+                    members' raw key strings (shorter-prefix-first across
+                    mixed lengths, i.e. Python str order, via zero-padded
+                    byte rows).  Threaded C sample sort when available
+                    (5-10x numpy's void argsort at millions of members);
+                    members are distinct keys, so the memcmp order is
+                    total either way."""
+                    padded = np.ascontiguousarray(member_bytes(members))
+                    try:
+                        from .native.loader import rank_rows_native
+                        return rank_rows_native(padded)
+                    except (ImportError, ValueError):
+                        pass
+                    void = padded.view(
+                        np.dtype((np.void, padded.shape[1]))).ravel()
+                    rank = np.empty(len(members), dtype=np.int64)
+                    rank[np.argsort(void, kind="stable")] = \
+                        np.arange(len(members), dtype=np.int64)
+                    return rank
+
+                def concat_spans(span_s: np.ndarray, lens: np.ndarray
+                                 ) -> np.ndarray:
+                    total = int(lens.sum())
+                    offs = np.zeros(len(lens), dtype=np.int64)
+                    np.cumsum(lens[:-1], out=offs[1:])
+                    return np.repeat(span_s - offs, lens) + \
+                        np.arange(total, dtype=np.int64)
+
+                big_sizes = part.ends[big] - part.starts[big]
+                owned = np.arange(len(big)) % nproc == pid if distribute \
+                    else np.ones(len(big), dtype=bool)
+                # Clusters up to 64 members dissect TOGETHER in one
+                # lockstep vectorized pass (dissect_indices_batched): at
+                # production scale there are ~a million of them and
+                # per-cluster Python setup alone costs minutes.  Larger
+                # clusters use the per-cluster CSR path.
+                batch_mask = owned & (big_sizes <= 64) \
+                    if method_name is not None \
+                    else np.zeros(len(big), dtype=bool)
+                bsel = np.flatnonzero(batch_mask)
+                if len(bsel):
+                    cl = big[bsel]
+                    lens = big_sizes[bsel]
+                    members_b = part.order[concat_spans(part.starts[cl],
+                                                        lens)]
+                    elens = span_ends[bsel] - span_starts[bsel]
+                    epos = concat_spans(span_starts[bsel], elens)
+                    moffs = np.zeros(len(lens), dtype=np.int64)
+                    np.cumsum(lens[:-1], out=moffs[1:])
+                    eoff = np.repeat(moffs, elens)
+                    padded = np.ascontiguousarray(member_bytes(members_b))
+                    try:
+                        from .native.loader import rank_rows_native
+                        rank_b = rank_rows_native(padded)
+                    except (ImportError, ValueError):
+                        void_b = padded.view(
+                            np.dtype((np.void, padded.shape[1]))).ravel()
+                        rank_b = np.empty(len(members_b), dtype=np.int64)
+                        rank_b[np.argsort(void_b, kind="stable")] = \
+                            np.arange(len(members_b), dtype=np.int64)
+                    kept_b = dissect_indices_batched(
+                        method_name, counts_arr[members_b], rank_b, lens,
+                        el_i[epos] + eoff, el_j[epos] + eoff)
+                    kept_idx = members_b[kept_b]
+                    if distribute:
+                        kept_local.append(kept_idx)
+                    else:
+                        mark_indices(kept_idx)
+            with trace.span("dissect.large"):
+                for k in np.flatnonzero(owned & ~batch_mask):
+                    c = big[k]
+                    es, ee = span_starts[k], span_ends[k]
+                    members = part.order[part.starts[c]:part.ends[c]]
+                    if method_name is not None:
+                        # Index-based vectorized dissection: no per-member
+                        # Python tuples, CSR BFS instead of list scans —
+                        # giant clusters (low-complexity libraries) stay
+                        # near O(edges).
+                        kept_idx = members[dissect_indices(
+                            method_name, counts_arr[members],
+                            member_rank(members), el_i[es:ee], el_j[es:ee])]
+                        if distribute:
+                            kept_local.append(kept_idx)
+                        else:
+                            mark_indices(kept_idx)
+                        continue
+                    # User-supplied strategy: scalar (count, str) oracle API.
+                    cluster_list = [
+                        (int(counts_arr[i]),
+                         groups.key_bytes(int(i)).decode("latin-1"))
+                        for i in members]
+                    chosen = list(cluster_dissection_func(
+                        cluster_list, max_distance, use_edit_distance))
+                    # dict.fromkeys: tolerate a custom strategy yielding
+                    # repeats.
+                    for string in dict.fromkeys(chosen):
+                        mark_key_bytes(string.encode("latin-1"))
+
+        if distribute:
+            # One combined gather for the two-member AND big-cluster shards.
+            from .parallel.distributed import allgather_int64
+            kept_all = allgather_int64(np.concatenate(kept_local)
+                                       if kept_local
+                                       else np.empty(0, dtype=np.int64))
+            if len(kept_all):
+                mark_indices(kept_all)
+
+        kept_total = int(sum(int(m.sum()) for m in kept_mask))
+        logger.info(f"Found {kept_total} distinct reads "
+                    f"in {number_of_clusters} clusters."
+                    f"({timer.get_difference()})")
 
     # ---------------- Pass 3: filtered rewrite ---------------------------
     arena_ok = record_store is not None and not record_store.abandoned
@@ -1804,6 +1812,7 @@ def _deduplicate_cluster_impl(
     groups.dispose()
 
 
+@trace.spanned("pass3")
 def _write_from_record_store(output_files: List[str], groups: KeyGroups,
                              kept_mask: List[np.ndarray],
                              store: _RecordArenaStore,
@@ -1835,7 +1844,8 @@ def _write_from_record_store(output_files: List[str], groups: KeyGroups,
 
     from .runtime import release
 
-    kept_sorted = np.sort(_kept_first_positions(groups, kept_mask))
+    with trace.span("pass3.emit_set"):
+        kept_sorted = np.sort(_kept_first_positions(groups, kept_mask))
     distributed = nproc > 1 and not sharded_input
     writers: List = []
     parts_dirs: List[str] = []
@@ -1892,42 +1902,49 @@ def _write_from_record_store(output_files: List[str], groups: KeyGroups,
         part_order = sorted(range(len(store.positions)),
                             key=store.chunk_ids.__getitem__)
         for part_index in part_order:
-            positions = store.positions[part_index]
-            if not len(positions):
-                continue
-            lo = np.searchsorted(kept_sorted, positions[0])
-            hi = np.searchsorted(kept_sorted, positions[-1], side="right")
-            want = kept_sorted[lo:hi]
-            if not len(want):
-                continue
-            rows = np.searchsorted(positions, want)
-            # Every kept first_pos is the position of a record that
-            # inserted its key, so it must be present in the store.
-            # (Multi-host: a part's position span lies inside ONE chunk
-            # this host ingested, so every kept first position in the
-            # span is this host's local first insert — present here.)
-            if rows[-1] >= len(positions) or \
-                    not np.array_equal(positions[rows], want):
-                raise RuntimeError(
-                    "record arena is missing kept first occurrences")
-            chunk_id = store.chunk_ids[part_index]
+            with trace.span("pass3.render"):
+                positions = store.positions[part_index]
+                if not len(positions):
+                    continue
+                lo = np.searchsorted(kept_sorted, positions[0])
+                hi = np.searchsorted(kept_sorted, positions[-1],
+                                     side="right")
+                want = kept_sorted[lo:hi]
+                if not len(want):
+                    continue
+                rows = np.searchsorted(positions, want)
+                # Every kept first_pos is the position of a record that
+                # inserted its key, so it must be present in the store.
+                # (Multi-host: a part's position span lies inside ONE
+                # chunk this host ingested, so every kept first position
+                # in the span is this host's local first insert — present
+                # here.)
+                if rows[-1] >= len(positions) or \
+                        not np.array_equal(positions[rows], want):
+                    raise RuntimeError(
+                        "record arena is missing kept first occurrences")
+                chunk_id = store.chunk_ids[part_index]
+            trace.count("records.written", len(rows))
             for index in range(len(output_files)):
                 payload, bounds = store.parts[index][part_index]
-                out_bounds = np.zeros(len(rows) + 1, dtype=np.int64)
-                np.cumsum(bounds[rows + 1] - bounds[rows],
-                          out=out_bounds[1:])
-                selected = gather_ragged_native(payload, bounds, rows,
-                                                out_bounds)
+                with trace.span("pass3.render"):
+                    out_bounds = np.zeros(len(rows) + 1, dtype=np.int64)
+                    np.cumsum(bounds[rows + 1] - bounds[rows],
+                              out=out_bounds[1:])
+                    selected = gather_ragged_native(payload, bounds, rows,
+                                                    out_bounds)
                 if len(selected):
-                    write_queue.put((index, chunk_id, selected))
+                    with trace.span("pass3.writer_wait"):
+                        write_queue.put((index, chunk_id, selected))
                 # Drop this frame's binding so the write worker's
                 # refcount-gated release can recycle the gather buffer.
                 selected = None
     finally:
-        write_queue.put(None)
-        worker.join()
-        for writer in writers:
-            writer.close()
+        with trace.span("pass3.writer_wait"):
+            write_queue.put(None)
+            worker.join()
+            for writer in writers:
+                writer.close()
         if write_error:
             raise write_error[0]
     if distributed:
@@ -1939,6 +1956,7 @@ def _write_from_record_store(output_files: List[str], groups: KeyGroups,
         barrier("fastqdedup:arena-output-merged")
 
 
+@trace.spanned("pass3")
 def _filter_and_write(input_files: List[str], output_files: List[str],
                       check_slices: Optional[List[slice]],
                       groups: KeyGroups, kept_mask: List[np.ndarray],
@@ -1967,17 +1985,6 @@ def _filter_and_write(input_files: List[str], output_files: List[str],
     """
     import queue
     import threading
-    import time as _time
-
-    _debug = logger.isEnabledFor(logging.DEBUG)
-    _t0 = _time.perf_counter()
-
-    def _mark(label: str) -> None:
-        nonlocal _t0
-        if _debug:
-            now = _time.perf_counter()
-            logger.debug(f"pass3/{label}: {now - _t0:.2f}s")
-            _t0 = now
 
     # The emit set IS a set of record POSITIONS: a record emits iff its
     # key is kept AND its global index equals the key's recorded first
@@ -1989,19 +1996,19 @@ def _filter_and_write(input_files: List[str], output_files: List[str],
     # read one mask window per chunk.  (An earlier design rebuilt a hash
     # table over kept key BYTES and probed it per record — minutes at
     # 100M reads; the position identity makes it O(kept) setup.)
-    kept_fps = _kept_first_positions(groups, kept_mask)
-    # Keep the mask local: this host renders only positions in
-    # [shard_base, shard_base + _SHARD_STRIDE); kept keys first seen by
-    # another shard can never emit here.  (Strided multi-host mode has
-    # shard_base 0 and a global mask — positions in chunks this host
-    # does not render are simply never read.)
-    local_fps = kept_fps[(kept_fps >= shard_base)
-                         & (kept_fps < shard_base + _SHARD_STRIDE)]
-    local_fps = local_fps - shard_base
-    mask_size = int(local_fps.max()) + 1 if len(local_fps) else 0
-    emit_mask = np.zeros(mask_size, dtype=bool)
-    emit_mask[local_fps] = True
-    _mark("emit-set-build")
+    with trace.span("pass3.emit_set"):
+        kept_fps = _kept_first_positions(groups, kept_mask)
+        # Keep the mask local: this host renders only positions in
+        # [shard_base, shard_base + _SHARD_STRIDE); kept keys first seen
+        # by another shard can never emit here.  (Strided multi-host mode
+        # has shard_base 0 and a global mask — positions in chunks this
+        # host does not render are simply never read.)
+        local_fps = kept_fps[(kept_fps >= shard_base)
+                             & (kept_fps < shard_base + _SHARD_STRIDE)]
+        local_fps = local_fps - shard_base
+        mask_size = int(local_fps.max()) + 1 if len(local_fps) else 0
+        emit_mask = np.zeros(mask_size, dtype=bool)
+        emit_mask[local_fps] = True
     # Sharded-input mode: this host's files are wholly its own — plain
     # single-host writing (no parts, no merge); only the global record
     # base carries the shard offset.
@@ -2050,45 +2057,38 @@ def _filter_and_write(input_files: List[str], output_files: List[str],
         source = ((shard_base + i * chunk_records, c) for i, c in
                   enumerate(_zip_chunks(input_files, chunk_records))
                   if sharded_input or i % nproc == pid)
-    _acc = {"iter": 0.0, "member": 0.0, "render": 0.0}
     try:
         from .io.fastq import render_fastq_records
-        _tl = _time.perf_counter()
-        for chunk_base, chunks in source:
-            _now = _time.perf_counter()
-            _acc["iter"] += _now - _tl
-            _tl = _now
-            local_base = chunk_base - shard_base
-            lo = min(local_base, mask_size)
-            hi = min(local_base + chunks[0].count, mask_size)
-            emit_rows = np.flatnonzero(emit_mask[lo:hi])
-            _now = _time.perf_counter()
-            _acc["member"] += _now - _tl
-            _tl = _now
+        while True:
+            with trace.span("pass3.read"):
+                item = next(source, None)
+            if item is None:
+                break
+            chunk_base, chunks = item
+            with trace.span("pass3.render"):
+                local_base = chunk_base - shard_base
+                lo = min(local_base, mask_size)
+                hi = min(local_base + chunks[0].count, mask_size)
+                emit_rows = np.flatnonzero(emit_mask[lo:hi])
+            trace.count("records.written", len(emit_rows))
             # Vectorized serialization, one compressor call per chunk.
             for index, chunk in enumerate(chunks):
-                payload = render_fastq_records(chunk, emit_rows)
-                if distributed:
-                    if len(payload):
+                with trace.span("pass3.render"):
+                    payload = render_fastq_records(chunk, emit_rows)
+                    if distributed and len(payload):
                         _compress_part_payload(
                             payload, output_files[index]).tofile(
                             os.path.join(parts_dirs[index],
                                          f"{chunk_base:016d}.bin"))
-                elif len(payload):
-                    write_queue.put((index, payload))
-            _now = _time.perf_counter()
-            _acc["render"] += _now - _tl
-            _tl = _now
+                if not distributed and len(payload):
+                    with trace.span("pass3.writer_wait"):
+                        write_queue.put((index, payload))
     finally:
-        if _debug:
-            logger.debug("pass3/chunk-loop totals: " + ", ".join(
-                f"{k}={v:.2f}s" for k, v in _acc.items()))
-            _t0 = _time.perf_counter()
-        write_queue.put(None)
-        worker.join()
-        for writer in writers:
-            writer.close()
-        _mark("writer-drain")
+        with trace.span("pass3.writer_wait"):
+            write_queue.put(None)
+            worker.join()
+            for writer in writers:
+                writer.close()
         if write_error:
             raise write_error[0]
     if distributed:

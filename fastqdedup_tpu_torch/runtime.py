@@ -11,6 +11,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from .utils import trace
+
 _allocator_tuned = False
 
 _MADV_POPULATE_WRITE = 23  # Linux 5.14+
@@ -234,6 +236,8 @@ def big_empty(shape, dtype=np.uint8) -> np.ndarray:
         return np.empty(shape, dtype=dtype)
     size_class = -(-nbytes // _POOL_GRAN) * _POOL_GRAN
     base = _pool_take(size_class)
+    trace.count("pool.reused_bytes" if base is not None
+                else "pool.fresh_bytes", size_class)
     if base is None:
         if os.environ.get("FASTQDEDUP_POOL_DEBUG") == "1":
             import sys as _sys

@@ -15,15 +15,19 @@ in pass 2: taken beside pass 1's busy cores they would read differently
 and could move a bucket from one exact route to the other.
 
 Warm-up launches count in ``kernel_lib.WARMUP_LAUNCHES``, never in the
-wrappers' ``LAUNCHES``.
+wrappers' ``LAUNCHES``.  The thread's steps are the spans
+``warmup.context``, ``warmup.library`` and ``warmup.launches``
+(:mod:`.utils.trace`), children of the span that started the thread.
 """
 
 import sys
 import threading
 import time
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
+
+from .utils import trace
 
 
 def _first_touch(dev) -> None:
@@ -128,20 +132,18 @@ def warmup(lengths=(32, 64, 128, 160), edit_distances=(1, 2),
 
 
 class PrewarmThread(threading.Thread):
-    """The thread :func:`prewarm_async` starts.  ``seconds`` holds the
-    time of each of its steps once it has ended; :meth:`join` raises
+    """The thread :func:`prewarm_async` starts.  :meth:`join` raises
     what its work raised, once, so a build or launch failure reaches the
     run that asked for the warm-up."""
 
     def __init__(self, work):
         super().__init__(daemon=True, name="fastqdedup-prewarm")
         self._work = work
-        self.seconds: Dict[str, float] = {}
         self.error: Optional[BaseException] = None
 
     def run(self) -> None:
         try:
-            self._work(self.seconds)
+            self._work()
         except BaseException as exc:  # kept, and raised at the join
             self.error = exc
 
@@ -188,25 +190,25 @@ def prewarm_async(length: int, alphabet_size: int = 5,
             return None
         _prewarmed_geometries.add(geometry)
 
-    def work(seconds: Dict[str, float]) -> None:
+    def work() -> None:
+        import torch
+
         from .ops import kernel_lib
 
-        t0 = time.perf_counter()
-        _first_touch(dev)
-        t1 = time.perf_counter()
-        kernel_lib.library()
-        t2 = time.perf_counter()
-        with kernel_lib.counting_as_warmup():
-            if use_edit_distance:
-                _launch_edit(dev, length, max_distance)
-            else:
-                _launch_hamming(dev, length, alphabet_size, max_distance)
-        import torch
-        torch.cuda.synchronize(dev)
-        seconds.update(context=t1 - t0, library=t2 - t1,
-                       launches=time.perf_counter() - t2)
+        with trace.span("warmup.context"):
+            _first_touch(dev)
+        with trace.span("warmup.library"):
+            kernel_lib.library()
+        with trace.span("warmup.launches"):
+            with kernel_lib.counting_as_warmup():
+                if use_edit_distance:
+                    _launch_edit(dev, length, max_distance)
+                else:
+                    _launch_hamming(dev, length, alphabet_size,
+                                    max_distance)
+            torch.cuda.synchronize(dev)
 
-    thread = PrewarmThread(work)
+    thread = PrewarmThread(trace.carry(work))
     thread.start()
     return thread
 

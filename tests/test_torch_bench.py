@@ -271,7 +271,7 @@ def test_scale_profile_keeps_each_process_log(tmp_path):
     assert last_json(out)["processes"] == 2
     for p in range(2):
         text = (logs / f"scale_P2_proc{p}.log").read_text()
-        assert "pass1 totals" in text and "PROCWALL" in text
+        assert "spans of job" in text and "PROCWALL" in text
 
 
 def test_device_majority_holds_parity(tmp_path):

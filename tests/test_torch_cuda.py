@@ -437,6 +437,7 @@ def test_warmup_on_card_counts_apart(cuda_device, monkeypatch, capsys):
     a thread once per geometry whose join raises nothing."""
     from fastqdedup_tpu_torch import warmup
     from fastqdedup_tpu_torch.ops import kernel_lib
+    from fastqdedup_tpu_torch.utils import trace
 
     monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", "cuda")
     before = {**hk.LAUNCHES, **ek.LAUNCHES}
@@ -446,10 +447,15 @@ def test_warmup_on_card_counts_apart(cuda_device, monkeypatch, capsys):
     assert "kernel library load" in capsys.readouterr().err
     monkeypatch.setattr(warmup, "_prewarmed_geometries", set())
     for edit in (False, True):
-        thread = warmup.prewarm_async(100, 5, 1, edit)
-        thread.join(timeout=120)
+        trace.clear()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            thread = warmup.prewarm_async(100, 5, 1, edit)
+            thread.join(timeout=120)
         assert not thread.is_alive()
-        assert set(thread.seconds) == {"context", "library", "launches"}
+        assert [s.name for s in trace.spans()
+                if s.name.startswith("warmup.")] == [
+            "warmup.context", "warmup.library", "warmup.launches"]
         assert warmup.prewarm_async(100, 5, 1, edit) is None
     assert {**hk.LAUNCHES, **ek.LAUNCHES} == before
 

@@ -8,9 +8,6 @@ table.  Outputs are index pairs and integer arrays, so the tolerance is
 exact equality.
 """
 
-import logging
-import re
-
 import numpy as np
 import pytest
 import torch
@@ -23,6 +20,7 @@ from fastqdedup_tpu_torch import runtime
 from fastqdedup_tpu_torch.ops import bucket as torch_bucket
 from fastqdedup_tpu_torch.ops import hamming as torch_hamming
 from fastqdedup_tpu_torch.ops.encode import EncodeTable
+from fastqdedup_tpu_torch.utils import trace
 
 
 @pytest.fixture(autouse=True)
@@ -124,31 +122,13 @@ def _bucketed_route_env(monkeypatch, route):
         monkeypatch.setenv("FASTQDEDUP_HOST_RATE", "1.0")
 
 
-def _device_pair_count(records):
-    counts = [re.search(r"pairs host=(\d+) device=(\d+)", m)
-              for m in records]
-    counts = [m for m in counts if m]
-    assert counts, "bucketed debug line missing"
-    return (sum(int(m.group(1)) for m in counts),
-            sum(int(m.group(2)) for m in counts))
-
-
-@pytest.fixture
-def debug_records():
-    records = []
-
-    class Grab(logging.Handler):
-        def emit(self, record):
-            records.append(record.getMessage())
-
-    logger = logging.getLogger("fastqdedup")
-    handler = Grab(level=logging.DEBUG)
-    old = logger.level
-    logger.setLevel(logging.DEBUG)
-    logger.addHandler(handler)
-    yield records
-    logger.removeHandler(handler)
-    logger.setLevel(old)
+def _kept_pairs_since(before):
+    """Pairs kept on the host and on the device since the counter totals
+    ``before`` (``fastqdedup_tpu_torch.utils.trace``)."""
+    after = trace.counts()
+    return tuple(after.get(f"pairs.kept.{side}", 0)
+                 - before.get(f"pairs.kept.{side}", 0)
+                 for side in ("host", "device"))
 
 
 @pytest.mark.parametrize("route,d,threshold", [
@@ -156,20 +136,19 @@ def debug_records():
     ("bucket-kernel", 2, 2048), ("pair-list", 1, 2048),
     ("oversized", 1, 64),
 ])
-def test_bucketed_pairs_match_jax(monkeypatch, debug_records, route, d,
-                                  threshold):
-    """Pair sets equal the JAX package's on every route; the debug split
-    shows the forced route really ran on the device side."""
+def test_bucketed_pairs_match_jax(monkeypatch, route, d, threshold):
+    """Pair sets equal the JAX package's on every route; the kept-pair
+    counters show the forced route really ran on the device side."""
     _bucketed_route_env(monkeypatch, route)
     matrix = _bucketed_matrix(3)
     want = jax_bucket.hamming_neighbor_pairs_bucketed(
         matrix, 5, d, large_bucket_threshold=threshold)
-    debug_records.clear()
+    before = trace.counts()
     got = torch_bucket.hamming_neighbor_pairs_bucketed(
         matrix, 5, d, large_bucket_threshold=threshold)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
-    host, device = _device_pair_count(debug_records)
+    host, device = _kept_pairs_since(before)
     if route == "host":
         assert device == 0 < host
     else:

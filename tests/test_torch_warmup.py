@@ -17,10 +17,12 @@ import threading
 
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import fastqdedup_tpu.warmup as jax_warmup
 import fastqdedup_tpu_torch.warmup as torch_warmup
 from fastqdedup_tpu_torch.ops import edit_kernels, hamming_kernels, kernel_lib
+from fastqdedup_tpu_torch.utils import trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -70,12 +72,19 @@ def test_same_signatures_as_jax_package():
 
 @pytest.mark.parametrize("edit", [False, True])
 def test_second_call_for_one_geometry_returns_none(fake_card, edit):
-    first = torch_warmup.prewarm_async(24, 5, 1, edit)
-    assert isinstance(first, threading.Thread)
-    assert first.name == "fastqdedup-prewarm" and first.daemon
-    first.join(timeout=60)
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.span("caller") as caller:
+            first = torch_warmup.prewarm_async(24, 5, 1, edit)
+        assert isinstance(first, threading.Thread)
+        assert first.name == "fastqdedup-prewarm" and first.daemon
+        first.join(timeout=60)
     assert not first.is_alive()
-    assert set(first.seconds) == {"context", "library", "launches"}
+    # The thread's steps are spans under the one that started it.
+    steps = [s for s in trace.spans() if s.name.startswith("warmup.")]
+    assert [(s.name, s.parent, s.thread) for s in steps] == [
+        (name, caller.id, "fastqdedup-prewarm")
+        for name in ("warmup.context", "warmup.library", "warmup.launches")]
     assert torch_warmup.prewarm_async(24, 5, 1, edit) is None
     other = torch_warmup.prewarm_async(24, 5, 2, edit)
     assert other is not None
@@ -199,7 +208,7 @@ def test_pipeline_joins_the_thread_on_its_error_path(tmp_path, monkeypatch):
     finished = []
 
     def slow_prewarm(*args, **kwargs):
-        def work(seconds):
+        def work():
             started.set()
             release.wait(timeout=60)
             finished.append(True)

@@ -11,9 +11,11 @@ x 100 bp (``chip_smoke.generate_fastq``, seed 7) end to end, each twice:
 with the rates measured on this card, and with the two knobs set to the
 JAX tool's figures for a chip attached to its host locally (100 us a
 round trip, 8 GB/s), the measured-rate caches cleared between runs.
-It sums ``pairs host=H device=D`` over the pipeline's DEBUG lines
-(``bucketed-pairs[...]``), checks that both runs of an input write the
-same bytes, and prints one JSON line.  It passes when every input holds
+It takes the pairs kept on the host and on the card from the pipeline's
+``pairs.kept.host`` and ``pairs.kept.device`` counters
+(``fastqdedup_tpu_torch.utils.trace``), their totals before and after
+each run, checks that both runs of an input write the same bytes, and
+prints one JSON line.  It passes when every input holds
 parity and more than half of ``deepseq_30x``'s pairs go to the device
 under the knobs; otherwise it exits 1.
 
@@ -27,9 +29,7 @@ Without a card it exits 2 (``FASTQDEDUP_TORCH_DEVICE=cpu`` runs it on
 the CPU device).
 """
 import json
-import logging
 import os
-import re
 import shutil
 import sys
 import tempfile
@@ -47,27 +47,13 @@ LOCAL_RATES = {"FASTQDEDUP_DISPATCH_S": "0.0001",
                "FASTQDEDUP_H2D_RATE": "8e9"}
 
 
-class _SplitCapture(logging.Handler):
-    """Sums 'pairs host=H device=D' over the DEBUG lines of a run."""
-
-    def __init__(self):
-        super().__init__(level=logging.DEBUG)
-        self.host = 0
-        self.device = 0
-
-    def emit(self, record):
-        m = re.search(r"pairs host=(\d+) device=(\d+)", record.getMessage())
-        if m:
-            self.host += int(m.group(1))
-            self.device += int(m.group(2))
-
-
 def run_once(inp: str, out: str, knobs: bool, dev) -> dict:
     import torch
 
     import chip_smoke
     from fastqdedup_tpu_torch.ops import bucket
     from fastqdedup_tpu_torch.pipeline import deduplicate_cluster
+    from fastqdedup_tpu_torch.utils import trace
 
     for key, value in LOCAL_RATES.items():
         if knobs:
@@ -78,23 +64,19 @@ def run_once(inp: str, out: str, knobs: bool, dev) -> dict:
     # their removal, take effect in this run.
     bucket._dispatch_cache.clear()
     bucket._h2d_rate_cache.clear()
-    cap = _SplitCapture()
-    logger = logging.getLogger("fastqdedup")
-    old_level = logger.level
-    logger.setLevel(logging.DEBUG)
-    logger.addHandler(cap)
     chip_smoke.reset_launch_counts()
-    try:
-        t0 = time.perf_counter()
-        deduplicate_cluster([inp], [out], None, 1, 0.001)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-    finally:
-        logger.removeHandler(cap)
-        logger.setLevel(old_level)
-    return {"wall_s": wall, "pairs_host": cap.host,
-            "pairs_device": cap.device,
+    before = trace.counts()
+    t0 = time.perf_counter()
+    deduplicate_cluster([inp], [out], None, 1, 0.001)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    after = trace.counts()
+    kept = {side: after.get(f"pairs.kept.{side}", 0)
+            - before.get(f"pairs.kept.{side}", 0)
+            for side in ("host", "device")}
+    return {"wall_s": wall, "pairs_host": kept["host"],
+            "pairs_device": kept["device"],
             "launches": chip_smoke.launch_counts(),
             "sha256": chip_smoke.decompressed_sha256(out)}
 
