@@ -1,10 +1,12 @@
 """On-demand compiler for the native host-I/O library.
 
 The port shares the one C source with the JAX package,
-``fastqdedup_tpu/native/_fastq_io.c``, and compiles it by file path (the
-JAX package is not imported: its ``__init__`` pulls in jax).  The library
-is built into ``fastqdedup_tpu_torch/build/`` the first time the native
-path is imported, and again whenever the source is newer than the build.
+``fastqdedup_tpu/native/_fastq_io.c``, unchanged: it compiles its own
+``native/_fastq_io_port.c``, which includes that source by path and adds
+the entries only the port calls (the JAX package is not imported: its
+``__init__`` pulls in jax).  The library is built into
+``fastqdedup_tpu_torch/build/`` the first time the native path is
+imported, and again whenever either source is newer than the build.
 """
 
 import os
@@ -12,17 +14,19 @@ import subprocess
 import sysconfig
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_ROOT), "fastqdedup_tpu", "native",
-                    "_fastq_io.c")
+_SHARED = os.path.join(os.path.dirname(_ROOT), "fastqdedup_tpu", "native",
+                       "_fastq_io.c")
+_SRC = os.path.join(_ROOT, "native", "_fastq_io_port.c")
 _LIB = os.path.join(_ROOT, "build", "_fastq_io.so")
 
 
 def library_path() -> str:
     """Path to the built shared library, compiling it if needed."""
-    if not os.path.exists(_SRC):
-        raise ImportError(f"native FASTQ parser source not found: {_SRC}")
-    if os.path.exists(_LIB) and \
-            os.path.getmtime(_LIB) >= os.path.getmtime(_SRC):
+    for src in (_SRC, _SHARED):
+        if not os.path.exists(src):
+            raise ImportError(f"native FASTQ parser source not found: {src}")
+    if os.path.exists(_LIB) and os.path.getmtime(_LIB) >= max(
+            os.path.getmtime(_SRC), os.path.getmtime(_SHARED)):
         return _LIB
     os.makedirs(os.path.dirname(_LIB), exist_ok=True)
     cc = sysconfig.get_config_var("CC") or os.environ.get("CC") or "cc"

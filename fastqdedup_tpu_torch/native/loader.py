@@ -108,6 +108,18 @@ _lib.fq_count_units.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                 ctypes.POINTER(ctypes.c_int64)]
 _lib.fq_skip_newlines.restype = ctypes.c_int
 _lib.fq_skip_newlines.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+# The port's own entries (native/_fastq_io_port.c): split ingest.
+_lib.fq_record_start.restype = ctypes.c_int64
+_lib.fq_record_start.argtypes = [ctypes.c_char_p, ctypes.c_int64, _u8p,
+                                 ctypes.c_int64]
+_lib.fq_open_split.restype = ctypes.c_void_p
+_lib.fq_open_split.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                               ctypes.c_int64, ctypes.c_int64, _u8p,
+                               ctypes.c_int64]
+_lib.fq_close_split.restype = None
+_lib.fq_close_split.argtypes = [ctypes.c_void_p]
+_START_EOF = -1
+_START_NOT_FOUND = -4
 
 _lib.acc_add_sharded.restype = ctypes.c_int
 _lib.acc_add_sharded.argtypes = [_u64p, ctypes.c_int, _u8p, _i64p,
@@ -242,9 +254,45 @@ def count_bgzf_range_units(filename: str, lo: int, hi: int
         _lib.fq_close(handle)
 
 
+def bgzf_record_start(filename: str, member: int
+                      ) -> "tuple[int, np.ndarray] | None":
+    """The first FASTQ record start after the first newline of the
+    decompressed bytes that begin at the BGZF member at byte ``member``.
+
+    A line that starts with '@' and whose next-but-one line starts with
+    '+' is a header; of the four line starts after that newline the first
+    such one is taken.  Returns ``(t, head)``: its offset ``t`` from the
+    member's first decompressed byte, and those ``t`` bytes.  None when
+    no record starts after that newline (the data ends first).  Raises
+    FastqFormatError when none of the four lines qualifies, which only
+    malformed input gives.  Inflates only the members it reads.
+    """
+    from ..io.fastq import FastqFormatError
+
+    cap = 1 << 16
+    while True:
+        head = np.empty(cap, dtype=np.uint8)
+        t = _lib.fq_record_start(os.fsencode(filename), int(member), head,
+                                 cap)
+        if t <= cap:
+            break
+        cap = t
+    if t == _START_EOF:
+        return None
+    if t == _START_NOT_FOUND:
+        raise FastqFormatError(
+            f"{filename}: no FASTQ record start among the four lines "
+            f"after the first newline of the BGZF member at byte {member}")
+    if t < 0:
+        raise OSError(f"{filename}: could not inflate the BGZF member at "
+                      f"byte {member} (code {t})")
+    return t, head[:t]
+
+
 def read_fastq_chunks_native(filename: str, chunk_records: int = 1 << 18,
                              range_start: "int | None" = None,
-                             skip_newlines: int = 0
+                             skip_newlines: int = 0,
+                             split: "tuple[int, int] | None" = None
                              ) -> Iterator["FastqChunk"]:
     """Yield columnar FastqChunk batches parsed by the C library.
 
@@ -253,10 +301,40 @@ def read_fastq_chunks_native(filename: str, chunk_records: int = 1 << 18,
     ``skip_newlines`` newlines, so parsing starts at a record boundary
     computed from global line ordinals.  The caller bounds the record
     count (the reader itself runs to EOF).
+
+    ``split=(lo, hi)``: read the records from the first record start
+    after member ``lo`` (the file's first byte when ``lo`` is 0) up to
+    the first record start after member ``hi`` (EOF when ``hi`` is -1),
+    both found by :func:`bgzf_record_start`; ``lo`` and ``hi`` are member
+    boundaries.  Readers over consecutive splits of one file read each
+    record once.  A seam that is not a record start, which only malformed
+    input gives, leaves a cut record at the end of the reader before it:
+    FastqFormatError.
     """
     from ..io.fastq import FastqChunk, FastqFormatError
 
-    if range_start is not None:
+    close = _lib.fq_close
+    if split is not None:
+        lo, hi = split
+        skip = 0
+        if lo > 0:
+            start = bgzf_record_start(filename, lo)
+            if start is None:
+                return  # no record starts in this split
+            skip = start[0]
+        tail = np.empty(0, dtype=np.uint8)
+        if hi >= 0:
+            end = bgzf_record_start(filename, hi)
+            if end is None:
+                hi = -1  # no record starts after hi: read to EOF
+            else:
+                tail = end[1]
+        handle = _lib.fq_open_split(os.fsencode(filename), int(lo), int(hi),
+                                    int(skip), tail, len(tail))
+        if not handle:
+            raise OSError(f"could not open {filename!r} at byte {lo}")
+        close = _lib.fq_close_split
+    elif range_start is not None:
         handle = _lib.fq_open_range(os.fsencode(filename),
                                     int(range_start), -1)
         if not handle:
@@ -353,7 +431,7 @@ def read_fastq_chunks_native(filename: str, chunk_records: int = 1 << 18,
                     + 4096, chunk_records * 8)
                 adapted = True
     finally:
-        _lib.fq_close(handle)
+        close(handle)
 
 
 def average_error_rates_native(qual_data: np.ndarray,

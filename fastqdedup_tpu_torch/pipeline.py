@@ -28,7 +28,7 @@ batch execution:
 
 import logging
 import os
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 
@@ -171,9 +171,33 @@ def _capped_chunks(source: Iterator[FastqChunk], n_records: int
             return
 
 
+class _Split(NamedTuple):
+    """One reader's part of a single BGZF file (:func:`_plan_split_ranges`):
+    the records from the first record start after member ``lo`` to the
+    first record start after member ``hi`` (-1: to EOF)."""
+    lo: int
+    hi: int
+
+
+# A reader's part of one input file: a split, or the counted plan's
+# ``(start_offset, skip_newlines, n_records)``.
+_RangeEntry = Union[_Split, Tuple[int, int, int]]
+
+
+def _range_chunks(path: str, chunk_records: int, entry: _RangeEntry
+                  ) -> Iterator[FastqChunk]:
+    """The chunks of one reader's part of ``path``."""
+    from .native.loader import read_fastq_chunks_native
+    if isinstance(entry, _Split):
+        return read_fastq_chunks_native(path, chunk_records, split=entry)
+    start, skip, n_records = entry
+    return _capped_chunks(read_fastq_chunks_native(
+        path, chunk_records, range_start=start, skip_newlines=skip),
+        n_records)
+
+
 def _zip_chunks_serial(input_files: List[str], chunk_records: int,
-                       range_plan: Optional[List[Tuple[int, int, int]]]
-                       = None
+                       range_plan: Optional[List[_RangeEntry]] = None
                        ) -> Iterator[Tuple[FastqChunk, ...]]:
     """Read all files in lockstep chunks; like zip(), stop at the shortest
     file (matching the reference's zip at __init__.py:180).
@@ -182,20 +206,17 @@ def _zip_chunks_serial(input_files: List[str], chunk_records: int,
     parser releases the GIL inside zlib/parse), so paired-end ingest costs
     one file's wall time, not the sum.
 
-    ``range_plan``: per-file ``(start_offset, skip_newlines, n_records)``
-    byte-range ingest (see :func:`_plan_input_ranges`) — each reader
-    opens at its BGZF member boundary, skips to its record boundary, and
-    is capped at its record budget.
+    ``range_plan``: one entry per file.  A counted plan's
+    ``(start_offset, skip_newlines, n_records)`` (see
+    :func:`_plan_input_ranges`): the reader opens at its BGZF member
+    boundary, skips to its record boundary, and is capped at its record
+    budget.  A :class:`_Split`: the reader finds its own first record and
+    stops where the next split's reader starts.
     """
     if range_plan is not None:
-        from .native.loader import read_fastq_chunks_native
         iterators = [
-            _rechunk(_capped_chunks(read_fastq_chunks_native(
-                f, chunk_records,
-                range_start=start,
-                skip_newlines=skip), n_records), chunk_records)
-            for f, (start, skip, n_records)
-            in zip(input_files, range_plan)]
+            _rechunk(_range_chunks(f, chunk_records, entry), chunk_records)
+            for f, entry in zip(input_files, range_plan)]
     else:
         iterators = [_rechunk(read_fastq_chunks(f, chunk_records),
                               chunk_records) for f in input_files]
@@ -229,7 +250,7 @@ def _zip_chunks_serial(input_files: List[str], chunk_records: int,
 
 def _zip_chunks(input_files: List[str], chunk_records: int,
                 prefetch: int = 2,
-                range_plan: Optional[List[Tuple[int, int, int]]] = None
+                range_plan: Optional[List[_RangeEntry]] = None
                 ) -> Iterator[Tuple[FastqChunk, ...]]:
     """Prefetching wrapper around :func:`_zip_chunks_serial`.
 
@@ -530,6 +551,15 @@ class _RecordArenaStore:
                 f"({self.bytes / (1 << 30):.2f} GiB); pass 3 will "
                 f"re-stream the inputs")
             self.abandon()
+
+    def rebase(self, offsets: np.ndarray, shift: int,
+               shard_base: int) -> None:
+        """Provisional split positions -> exact ordinals (each part holds
+        one reader's records; see :func:`_exact_positions`)."""
+        for i, chunk_id in enumerate(self.chunk_ids):
+            offset = int(offsets[(chunk_id - shard_base) >> shift])
+            self.positions[i] += offset
+            self.chunk_ids[i] = chunk_id + offset
 
     def abandon(self) -> None:
         self.abandoned = True
@@ -880,8 +910,69 @@ def _plan_local_ranges(input_files: List[str], n_parts: int
     return _range_parts_from_units(splits, 0, n_min, n_parts)
 
 
+def _plan_split_ranges(path: str, n_parts: int
+                       ) -> Optional[List[_Split]]:
+    """Split one BGZF file into up to ``n_parts`` parts for CONCURRENT
+    readers inside one process, inflating nothing.
+
+    Part p starts at the first member boundary at or after byte
+    ``size * p / n_parts`` (``fq_scan_boundary``, at most 256 KiB read),
+    part 0 at byte 0; repeated or missing boundaries drop out.  Each
+    reader finds its own first record and stops at the next one's (see
+    :func:`native.loader.read_fastq_chunks_native`), so no newline count
+    is needed.  None when the file is not BGZF or fewer than two parts
+    remain (the serial reader then reads it).
+    """
+    try:
+        from .native.loader import bgzf_boundary
+    except ImportError:
+        return None
+    try:
+        size = os.path.getsize(path)
+        bounds = [0]
+        for p in range(1, n_parts):
+            boundary = bgzf_boundary(path, size * p // n_parts)
+            if boundary is None:
+                return None
+            if boundary > bounds[-1]:
+                bounds.append(boundary)
+    except OSError:
+        return None  # the serial path surfaces the real error
+    if len(bounds) < 2:
+        return None
+    return [_Split(lo, hi) for lo, hi in zip(bounds, bounds[1:] + [-1])]
+
+
+def _split_shift(n_parts: int) -> int:
+    """Bits of a split reader's local ordinal in its provisional record
+    positions: part p's records take ``[p << shift, (p + 1) << shift)``,
+    all inside one shard's ``_SHARD_STRIDE``."""
+    return _SHARD_STRIDE.bit_length() - 1 - max(n_parts - 1, 1).bit_length()
+
+
+def _split_offsets(counts: np.ndarray, shift: int) -> np.ndarray:
+    """What to add to a provisional position of each part to make it the
+    record's exact ordinal: ``base_p - (p << shift)``, where ``base_p`` is
+    the number of records of the parts before p."""
+    counts = np.asarray(counts, dtype=np.int64)
+    if len(counts) and int(counts.max()) >= 1 << shift:
+        raise RuntimeError("a split reader read more records than its "
+                           "position range holds")
+    bases = np.zeros(len(counts), dtype=np.int64)
+    np.cumsum(counts[:-1], out=bases[1:])
+    return bases - (np.arange(len(counts), dtype=np.int64) << shift)
+
+
+def _exact_positions(positions: np.ndarray, offsets: np.ndarray, shift: int,
+                     shard_base: int = 0) -> None:
+    """Map provisional split positions (``shard_base`` + part p's
+    ``(p << shift) + local ordinal``) to exact ordinals, in place."""
+    if len(positions):
+        positions += offsets[(positions - shard_base) >> shift]
+
+
 def _parallel_range_chunks(input_files: List[str], chunk_records: int,
-                           parts: "List[Tuple[Optional[List[Tuple[int, int, int]]], int]]",
+                           parts: "List[Tuple[Optional[List[_RangeEntry]], int]]",
                            queue_depth: int = 2
                            ) -> Iterator[Tuple[int, Tuple[FastqChunk,
                                                           ...]]]:
@@ -1067,6 +1158,11 @@ def _kept_first_positions(groups: KeyGroups,
     return np.concatenate(parts) if parts else np.empty(0, dtype=np.int64)
 
 
+class _SplitIngestFailed(Exception):
+    """A split reader raised FastqFormatError in pass 1 (see
+    :func:`deduplicate_cluster`)."""
+
+
 def deduplicate_cluster(
     input_files: List[str],
     output_files: List[str],
@@ -1092,12 +1188,25 @@ def deduplicate_cluster(
     interpreter exit or when the process group is destroyed.
     """
     prewarm: List = []
+    args = (input_files, output_files, check_slices, max_distance,
+            max_average_error_rate, cluster_dissection_func,
+            use_edit_distance, chunk_records, prewarm)
     with trace.job():
         try:
-            _deduplicate_cluster_impl(
-                input_files, output_files, check_slices, max_distance,
-                max_average_error_rate, cluster_dissection_func,
-                use_edit_distance, chunk_records, prewarm)
+            serial_again = False
+            try:
+                _deduplicate_cluster_impl(*args)
+            except _SplitIngestFailed as failed:
+                # A split reader met input the serial parser reads
+                # otherwise (a seam that is not a record start) or refuses:
+                # nothing was written yet, so the job starts again with
+                # pass 1 read serially, which gives its answer or its error.
+                # (Outside this block: the traceback holds pass 1's state.)
+                logger.debug("split ingest stopped (%s); pass 1 again, "
+                             "serially", failed)
+                serial_again = True
+            if serial_again:
+                _deduplicate_cluster_impl(*args, split_ingest=False)
         except BaseException:
             from .parallel.transport import abort_mesh
             abort_mesh()
@@ -1122,6 +1231,7 @@ def _deduplicate_cluster_impl(
     use_edit_distance: bool,
     chunk_records: int,
     prewarm: List,
+    split_ingest: bool = True,
 ) -> None:
     from .runtime import device, tune_host_allocator
     tune_host_allocator()
@@ -1203,6 +1313,8 @@ def _deduplicate_cluster_impl(
         # the reader count.  Chunks then arrive out of position order; every
         # consumer is position-keyed (see _parallel_range_chunks).
         parallel_parts = None
+        split_counts: Optional[np.ndarray] = None  # records of each split
+        split_shift = 0
         if os.environ.get("FASTQDEDUP_PARALLEL_INGEST", "1") != "0":
             try:
                 _cpus = len(os.sched_getaffinity(0))  # respects core pinning
@@ -1223,6 +1335,8 @@ def _deduplicate_cluster_impl(
             with trace.span("pass1.plan"):
                 planned = _plan_input_ranges(input_files, pid, nproc,
                                              n_parts=n_readers)
+                if planned:
+                    trace.count("pass1.parts.counted", len(planned))
             if planned:
                 if len(planned) > 1:
                     parallel_parts = planned
@@ -1244,7 +1358,27 @@ def _deduplicate_cluster_impl(
                     planned[-1][1] + planned[-1][0][0][2], len(planned))
         elif (nproc == 1 or sharded_input) and n_readers > 1:
             with trace.span("pass1.plan"):
-                parallel_parts = _plan_local_ranges(input_files, n_readers)
+                if len(input_files) > 1:
+                    # Several files zip record by record: each reader needs
+                    # the same record range in every file, which only the
+                    # newline count gives.
+                    parallel_parts = _plan_local_ranges(input_files,
+                                                        n_readers)
+                    if parallel_parts is not None:
+                        trace.count("pass1.parts.counted",
+                                    len(parallel_parts))
+                elif split_ingest:
+                    # One file: split at member boundaries, no inflate.
+                    # Reader p's records take provisional positions from
+                    # p << split_shift on, in file order; pass 1 maps them
+                    # to exact ordinals once every reader has counted.
+                    splits = _plan_split_ranges(input_files[0], n_readers)
+                    if splits is not None:
+                        split_shift = _split_shift(len(splits))
+                        split_counts = np.zeros(len(splits), dtype=np.int64)
+                        parallel_parts = [([part], p << split_shift)
+                                          for p, part in enumerate(splits)]
+                        trace.count("pass1.parts.split", len(splits))
             if parallel_parts is not None:
                 logger.debug("parallel ingest: %d range readers",
                              len(parallel_parts))
@@ -1284,7 +1418,12 @@ def _deduplicate_cluster_impl(
         try:
             while True:
                 with trace.span("pass1.read"):
-                    item = next(_chunk_iter, None)
+                    try:
+                        item = next(_chunk_iter, None)
+                    except FastqFormatError as exc:
+                        if split_counts is None:
+                            raise
+                        raise _SplitIngestFailed(str(exc)) from exc
                 if item is None:
                     break
                 chunk_index += 1
@@ -1292,6 +1431,9 @@ def _deduplicate_cluster_impl(
                     part_base, chunks = item
                     base = shard_base + part_base
                     global_base += chunks[0].count
+                    if split_counts is not None:
+                        split_counts[part_base >> split_shift] += \
+                            chunks[0].count
                 else:
                     chunks = item
                     base = shard_base + range_base + global_base
@@ -1394,6 +1536,19 @@ def _deduplicate_cluster_impl(
             # refcount gate for entries that are base arrays.
             while recycle_bin:
                 release(recycle_bin.pop())
+        split_offsets: Optional[np.ndarray] = None
+        if split_counts is not None:
+            # Every reader has counted: provisional positions -> exact
+            # ordinals, here for the arena and the chunk cache, in pass 2
+            # for the key table's first positions.
+            split_offsets = _split_offsets(split_counts, split_shift)
+            if record_store is not None and not record_store.abandoned:
+                record_store.rebase(split_offsets, split_shift, shard_base)
+            if cached_chunks:
+                cached_chunks = [
+                    (base + int(split_offsets[(base - shard_base)
+                                              >> split_shift]), chunks)
+                    for base, chunks in cached_chunks]
         if parallel_parts is not None and cached_chunks:
             # Range readers interleave arbitrarily; pass 3 walks the cache in
             # file order.
@@ -1431,6 +1586,8 @@ def _deduplicate_cluster_impl(
             # table — the O(bytes) hashing happened shard-local, during
             # pass 1.
             kd, ko, kc, kp = accumulator.export()
+            if split_offsets is not None:
+                _exact_positions(kp, split_offsets, split_shift, shard_base)
             h1 = accumulator.export_hashes()
             from .native.loader import hash_ragged_native
             h2 = hash_ragged_native(kd, ko, seed=0xA5B35705F1E2D3C4)
@@ -1455,7 +1612,10 @@ def _deduplicate_cluster_impl(
             # groups.dispose() can recycle them at the end of the run.
             del kd2, ko2, kc2, kp2
         else:
-            kd, ko, kc, kp = allgather_key_tables(*accumulator.export())
+            kd, ko, kc, kp = accumulator.export()
+            if split_offsets is not None:
+                _exact_positions(kp, split_offsets, split_shift, shard_base)
+            kd, ko, kc, kp = allgather_key_tables(kd, ko, kc, kp)
             groups = _finalize_groups(
                 kd, ko, kc, kp, single_table=(nproc == 1 and collapsed))
             # Recycle whichever export columns _finalize_groups did NOT

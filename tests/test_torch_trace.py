@@ -238,14 +238,16 @@ def test_the_runs_open_every_span_a_cpu_run_can():
 
 def test_outputs_are_the_same_bytes_on_and_off(tmp_path, monkeypatch):
     """Parallel range ingest as it is by default, on an input that splits
-    across range readers; off, under the profiler and under DEBUG."""
+    across range readers at member boundaries; off, under the profiler
+    and under DEBUG."""
     src = _bgzf_input(tmp_path, 40_000)
-    assert len(pipeline._plan_local_ranges([src], 4)) > 1
+    assert len(pipeline._plan_split_ranges(src, 4)) > 1
     parts = []
     inner = pipeline._parallel_range_chunks
 
     def spy(files, records, plan, *args, **kwargs):
-        parts.append(len(plan))
+        parts.append(sum(isinstance(entry, pipeline._Split)
+                         for part, _ in plan for entry in part))
         return inner(files, records, plan, *args, **kwargs)
 
     monkeypatch.setattr(pipeline, "_parallel_range_chunks", spy)
