@@ -339,7 +339,10 @@ def _edit_edges_entries(entries: Entries, n: int, max_distance: int,
         if on_card:
             # Device-resident keys + per-batch index pairs: 8 bytes a pair
             # cross the wire instead of ~2 L (ops/edit.edit_verify_indexed).
-            keys_dev, lens_dev = key_upload()
+            # The span times the host's join of the upload thread; a copy
+            # still in flight on the card is waited for in the first batch.
+            with trace.span("pairs.key_upload_wait"):
+                keys_dev, lens_dev = key_upload()
             for start in range(0, len(cand_i), batch):
                 sl = slice(start, start + batch)
                 keep[sl] = edit_verify_indexed(

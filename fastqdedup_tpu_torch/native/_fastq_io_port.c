@@ -405,3 +405,22 @@ void fq_close_split(FqReader *r) {
     free(s->tail);
     free(s);
 }
+
+/* Key-table export (native/loader.py: KeyAccumulator.export and
+ * ShardedKeyAccumulator.export), in place of the shared acc_export.
+ * That one copies through par_memcpy, whose 8 pieces of
+ * round_up(n / 8, 4096) bytes end short of n where n / 8 is itself a
+ * multiple of 4096 (n >= 8 MiB, n mod 32768 in 1..7): the last n mod 8
+ * key bytes are never copied and keep whatever the destination held, a
+ * recycled buffer's stale bytes included.  The pieces always reach
+ * 8 * (n / 8) = n - n mod 8, so copying the last n mod 8 bytes again
+ * completes the arena.  The count, position and offset arrays are
+ * multiples of 8 bytes and are never cut. */
+void acc_export_port(const KeyAcc *a, unsigned char *key_out,
+                     int64_t *offsets_out, int64_t *counts_out,
+                     int64_t *firstpos_out) {
+    acc_export(a, key_out, offsets_out, counts_out, firstpos_out);
+    size_t tail = a->arena_len & 7;
+    memcpy(key_out + a->arena_len - tail, a->arena + a->arena_len - tail,
+           tail);
+}

@@ -66,8 +66,11 @@ _lib.acc_size.restype = ctypes.c_int64
 _lib.acc_size.argtypes = [ctypes.c_void_p]
 _lib.acc_key_bytes.restype = ctypes.c_int64
 _lib.acc_key_bytes.argtypes = [ctypes.c_void_p]
-_lib.acc_export.restype = None
-_lib.acc_export.argtypes = [ctypes.c_void_p, _u8p, _i64p, _i64p, _i64p]
+# The port's own export (native/_fastq_io_port.c): the shared acc_export
+# can leave the last key bytes of a table uncopied.
+_lib.acc_export_port.restype = None
+_lib.acc_export_port.argtypes = [ctypes.c_void_p, _u8p, _i64p, _i64p,
+                                 _i64p]
 _u64p = np.ctypeslib.ndpointer(dtype=np.uint64, flags="C_CONTIGUOUS")
 _u32p = np.ctypeslib.ndpointer(dtype=np.uint32, flags="C_CONTIGUOUS")
 _lib.acc_export_hashes.restype = None
@@ -586,8 +589,8 @@ class KeyAccumulator:
         offsets_out = big_empty(n + 1, dtype=np.int64)
         counts_out = big_empty(n, dtype=np.int64)
         firstpos_out = big_empty(n, dtype=np.int64)
-        _lib.acc_export(self._handle, key_out, offsets_out, counts_out,
-                        firstpos_out)
+        _lib.acc_export_port(self._handle, key_out, offsets_out,
+                             counts_out, firstpos_out)
         return key_out, offsets_out, counts_out, firstpos_out
 
     def export_hashes(self) -> np.ndarray:
@@ -939,9 +942,9 @@ class ShardedKeyAccumulator:
             # sentinel is the next shard's first offset).
             row, byte = int(rows[s]), int(bytes_at[s])
             local_offsets = np.empty(sizes[s] + 1, dtype=np.int64)
-            _lib.acc_export(self._handles[s], key_out[byte:],
-                            local_offsets, counts_out[row:],
-                            firstpos_out[row:])
+            _lib.acc_export_port(self._handles[s], key_out[byte:],
+                                 local_offsets, counts_out[row:],
+                                 firstpos_out[row:])
             np.add(local_offsets[:-1], byte, out=offsets_out[row:row + sizes[s]])
 
         with ThreadPoolExecutor(max_workers=len(self._handles)) as pool:

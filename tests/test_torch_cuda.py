@@ -659,12 +659,11 @@ def test_bucket_and_edit_routes_make_no_synchronizing_call(cuda_device,
                 if site.startswith(("ops/bucket.py", "ops/edit.py"))], sites
 
 
-def test_edit_key_upload_matches_cpu(cuda_device, monkeypatch):
-    """The edit route's key matrix, sent from the engine's thread while
-    candidates are generated, gives the CPU device's edges."""
-    from fastqdedup_tpu_torch import engine
-
-    rng = np.random.default_rng(9)
+def _edit_entries(seed):
+    """The edit route's input (``engine._edit_edges_entries``): keys of
+    300 molecules of 40 bases, each beside a copy with one base deleted
+    and one with a base inserted, grouped by length; and the key count."""
+    rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     mol = bases[rng.integers(0, 4, (300, 40))]
     keys = {row.tobytes() for row in mol}
@@ -680,10 +679,44 @@ def test_edit_key_upload_matches_cpu(cuda_device, monkeypatch):
         entries.append((int(length), np.frombuffer(
             b"".join(keys[i] for i in idx), dtype=np.uint8).reshape(
                 len(idx), length), idx))
+    return entries, len(keys)
+
+
+def test_edit_key_upload_matches_cpu(cuda_device, monkeypatch):
+    """The edit route's key matrix, sent from the engine's thread while
+    candidates are generated, gives the CPU device's edges."""
+    from fastqdedup_tpu_torch import engine
+
+    entries, n = _edit_entries(9)
     edges = {}
     for dev in ("cpu", "cuda"):
         monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", dev)
-        edges[dev] = engine._edit_edges_entries(entries, len(keys), 1)
+        edges[dev] = engine._edit_edges_entries(entries, n, 1)
     for got, want in zip(edges["cuda"], edges["cpu"]):
         np.testing.assert_array_equal(got, want)
     assert len(edges["cpu"][0]) > 300
+
+
+def test_edit_key_upload_wait_is_one_span_a_call(cuda_device, monkeypatch):
+    """On the card each call of the edit route waits for its key matrix
+    once, inside its verification: one ``pairs.key_upload_wait`` span a
+    call, under ``pairs.edit_verify``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastqdedup_tpu_torch import engine
+    from fastqdedup_tpu_torch.utils import trace
+
+    entries, n = _edit_entries(10)
+    monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", "cuda")
+    trace.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(2):
+                assert len(engine._edit_edges_entries(entries, n, 1)[0])
+        spans = trace.spans()
+    finally:
+        trace.clear()
+    by_id = {s.id: s for s in spans}
+    waits = [s for s in spans if s.name == "pairs.key_upload_wait"]
+    assert len(waits) == 2
+    assert all(by_id[s.parent].name == "pairs.edit_verify" for s in waits)

@@ -8,8 +8,9 @@ id and its thread, lies inside its job, and holds only str and int
 values; the outputs are the same bytes on and off.  Each reader gives
 its value on a made-up trace and nothing where its spans are absent.
 The spans only the card gives (``device.wait`` from a real event, the
-prewarm thread's ``warmup.*``) are held here with stand-ins, and on the
-card by ``tests/test_torch_cuda.py``.
+prewarm thread's ``warmup.*``, the edit route's ``pairs.key_upload_wait``)
+are absent from a run here; the first two are held here with stand-ins,
+and all three on the card by ``tests/test_torch_cuda.py``.
 """
 
 import logging
@@ -57,6 +58,7 @@ PARENTS = {
     "pairs.pad": {"pairs.edges"},
     "pairs.candidates": {"pairs.edges"},
     "pairs.edit_verify": {"pairs.edges"},
+    "pairs.key_upload_wait": {"pairs.edit_verify"},
     "pass2.dissect": {"job"},
     "dissect.singletons": {"pass2.dissect"},
     "dissect.two_member": {"pass2.dissect"},
@@ -68,10 +70,11 @@ PARENTS = {
     "pass3.render": {"pass3"},
     "pass3.writer_wait": {"pass3"},
 }
-# Spans a run on the CPU device cannot open: the card's waits and the
-# thread that brings it up (held below with stand-ins).
+# Spans a run on the CPU device cannot open: the card's waits, the
+# thread that brings it up (held below with stand-ins) and the wait for
+# the edit route's key matrix (held by tests/test_torch_cuda.py).
 CARD_ONLY = {"warmup.join", "device.wait", "warmup.context",
-             "warmup.library", "warmup.launches"}
+             "warmup.library", "warmup.launches", "pairs.key_upload_wait"}
 WORKER_SPANS = {"pass1.quality", "pass1.accumulate", "pass1.render"}
 FIELDS = ("name", "start", "end", "id", "parent", "job", "thread")
 
@@ -228,6 +231,7 @@ def test_profiler_records_each_span_under_its_parent(tmp_path, monkeypatch,
         _run(src, str(tmp_path / "out.fastq.gz"), edit)
     names = _check_job(trace.spans())
     assert opened <= names, opened - names
+    assert not names & CARD_ONLY, names & CARD_ONLY
     assert EVERY_RUN - closed <= names, EVERY_RUN - closed - names
 
 
