@@ -37,6 +37,10 @@ Phases, each printing one JSON line to stdout:
    the share of it the kernel reached; for the all-pairs kernel also
    ``library_ms``, the one-hot product of ``onehot_product`` timed the
    same way (match counts only);
+   ``deflate`` — the deflate kernel against its plain version, byte for
+   byte, on 9 inputs: FASTQ at a member's edge sizes and one whole
+   window of the card writer (``bgzf.DEVICE_WINDOW_MEMBERS`` members),
+   random bytes that take stored blocks, zeros, long repeats;
    ``verify`` — every kernel against host oracles that share no code with
    the port's plain versions (numpy all-pairs comparisons, the scalar
    ``distance.within_distance``) at the 23 geometries of
@@ -105,7 +109,8 @@ Phases, each printing one JSON line to stdout:
 
 Then one ``{"kernels": [...]}`` line (launch counts of phases 5-7 and 9,
 times, bounds and errors of phase 3, the ``verify`` phase's geometries a
-kernel as ``oracle_geometries``), the ``nvidia-smi`` name/power-limit line,
+kernel as ``oracle_geometries``; every path that writes ``.gz`` on the
+card must have launched the deflate kernel), the ``nvidia-smi`` name/power-limit line,
 and the result line ``{"ok": true, "device": {...}}`` last.  Any failed
 check, or a child process that fails, exits non-zero before the result
 line.  Without CUDA, or without the package beside this script, it exits
@@ -282,7 +287,16 @@ KERNELS = {
     "banded_within_edit_distance": (
         "fastqdedup_tpu_torch/csrc/edit.cu",
         "fastqdedup_tpu/ops/pallas_edit.py:106"),
+    "deflate_members": (
+        "fastqdedup_tpu_torch/csrc/deflate.cu",
+        "none: the JAX package deflates on the host "
+        "(fastqdedup_tpu/io/bgzf.py)"),
 }
+# Paths whose runs must launch each kernel: every path writes .gz on
+# the card (the distributed path in its sharded-input job).
+KERNEL_PATHS = {"banded_within_edit_distance": ("edit",),
+                "deflate_members": ("hamming", "edit", "configs",
+                                    "distributed")}
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates, full
@@ -1214,6 +1228,210 @@ def check_kernels(dev) -> dict:
     return summary
 
 
+def deflate_inputs() -> dict:
+    """name -> bytes: the deflate kernel's check inputs (FASTQ, the edge
+    sizes of a member, a whole window of the card writer, random bytes
+    that take stored blocks, a run of zeros)."""
+    from fastqdedup_tpu_torch.io.bgzf import DEVICE_WINDOW_MEMBERS
+
+    rng = np.random.default_rng(31)
+    seqs = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (6000, 100))]
+    quals = (33 + rng.integers(30, 41, (6000, 100))).astype(np.uint8)
+    reads = fastq_block(0, seqs, quals)
+    return {"one_byte": b"x", "three_bytes": b"abc",
+            "one_member": reads[:65280], "member_and_byte": reads[:65281],
+            "members_and_tail": reads[:3 * 65280 + 12345],
+            "window": (reads * 7)[:DEVICE_WINDOW_MEMBERS * 65280],
+            "random": rng.integers(0, 256, 2 * 65280 + 7,
+                                   dtype=np.uint8).tobytes(),
+            "zeros": bytes(65280 + 300),
+            "mutated_repeats": mutated_repeats(rng)}
+
+
+def mutated_repeats(rng) -> bytes:
+    """A 257-byte unit repeated over two members with 1 byte in 50
+    changed: long matches that end at random places, so the deflate
+    kernel's greedy parse steps over matches of every length."""
+    data = np.resize(rng.integers(0, 256, 257, dtype=np.uint8),
+                     2 * 65280 - 11)
+    hit = rng.integers(0, len(data), len(data) // 50)
+    data[hit] = rng.integers(0, 256, len(hit), dtype=np.uint8)
+    return data.tobytes()
+
+
+def deflate_on(dev, data: bytes, total: int = 0):
+    """(members bytes, lengths, launch) of the deflate kernel on ``dev``
+    over ``data``; ``launch`` repeats the launch."""
+    from fastqdedup_tpu_torch.ops import deflate_kernels as dk
+
+    total = total or len(data)
+    members = dk.members_of(total)
+    src = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    out = torch.zeros(members * dk.OUT_STRIDE, dtype=torch.uint8, device=dev)
+    lens = torch.zeros(members, dtype=torch.int32, device=dev)
+    scratch = torch.empty(dk.scratch_bytes(members) if dev.type == "cuda"
+                          else 0, dtype=torch.uint8, device=dev)
+
+    def launch():
+        dk.deflate_members(src, total, out, lens, scratch)
+    launch()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    got = out.cpu().numpy()
+    sizes = lens.cpu().tolist()
+    return [got[i * dk.OUT_STRIDE:i * dk.OUT_STRIDE + n].tobytes()
+            for i, n in enumerate(sizes)], sizes, launch
+
+
+def check_deflate(dev) -> dict:
+    """The deflate kernel against its plain version, byte for byte, and
+    every member inflating to its input; returns the inputs checked."""
+    from fastqdedup_tpu_torch.ops.deflate_kernels import members_of
+
+    t0 = time.perf_counter()
+    inputs = deflate_inputs()
+    for name, data in inputs.items():
+        got, _, _ = deflate_on(dev, data)
+        want, _, _ = deflate_on(torch.device("cpu"), data)
+        if got != want:
+            bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+            fail(f"deflate kernel {name}: member {bad} differs from the "
+                 f"plain version ({len(got[bad])} vs {len(want[bad])} bytes)")
+        if gzip.decompress(b"".join(got)) != data:
+            fail(f"deflate kernel {name}: members do not inflate to the "
+                 f"input")
+    checked = {"plain_inputs": sorted(inputs),
+               "plain_members": sum(members_of(len(data))
+                                    for data in inputs.values())}
+    emit({"phase": "deflate", **checked, "equal_to_plain": True,
+          "seconds": time.perf_counter() - t0})
+    return checked
+
+
+def run_deflate(dev) -> int:
+    """``--deflate``: the check, then the kernel at the pipeline's shapes
+    (a writer window of 128 members; a job's 1,322 members of the
+    benchmark's ``default`` FASTQ and 510 of ``dense`` in one launch):
+    one launch between events, L2-warm, beside its bytes bound, the plain
+    version's time a member; the card writer and the host writer
+    (``ParallelBgzfWriter``: libdeflate if loaded) over a job's bytes."""
+    from benchmark.generate import generate_fastq
+    from fastqdedup_tpu_torch.io import bgzf
+    from fastqdedup_tpu_torch.ops import deflate_kernels as dk
+
+    check_deflate(dev)
+    workdir = tempfile.mkdtemp(prefix="deflate_", dir=os.path.join(
+        HERE, "fastqdedup_tpu_torch", "build"))
+    try:
+        jobs = {}
+        for traffic, reads, members in (("default", 400_000, 1322),
+                                        ("dense", 160_000, 510)):
+            spec = json.load(open(os.path.join(
+                HERE, "benchmark", "traffic", traffic + ".json")))
+            kwargs = {k: v for k, v in spec.items()
+                      if not k.endswith("why") and k != "files"}
+            path = os.path.join(workdir, traffic + ".fastq.gz")
+            generate_fastq(path, reads, seed=2**31 + 9, **kwargs)
+            jobs[traffic] = gzip.open(path).read()[:members * dk.BLOCK_SIZE]
+        for traffic, data in jobs.items():
+            for label, part in (("window", data[:bgzf.DEVICE_WINDOW_MEMBERS
+                                            * dk.BLOCK_SIZE]),
+                                ("job", data)):
+                got, sizes, launch = deflate_on(dev, part)
+                out_bytes = sum(sizes)
+                cost = {"bytes": len(part) + out_bytes, "ops": 0,
+                        "ops_type": "int32"}
+                times = event_ms(launch, 7)
+                bound = kernel_bound(cost)
+                # Every member of the window, the first 4 of the job.
+                checked = len(sizes) if label == "window" else 4
+                t0 = time.perf_counter()
+                want = [dk.bgzf_member_plain(part[i:i + dk.BLOCK_SIZE])
+                        for i in range(0, min(len(part),
+                                              checked * dk.BLOCK_SIZE),
+                                       dk.BLOCK_SIZE)]
+                plain_ms = (time.perf_counter() - t0) * 1e3 / len(want)
+                if got[:len(want)] != want:
+                    fail(f"deflate {traffic} {label}: kernel differs from "
+                         f"the plain version")
+                emit({"phase": "deflate_time", "traffic": traffic,
+                      "shape": label, "members": len(sizes),
+                      "input_bytes": len(part), "output_bytes": out_bytes,
+                      "ratio": out_bytes / len(part),
+                      "ms_one_launch": statistics.median(times),
+                      "ms_one_launch_all": times, **bound,
+                      "share_of_bound": bound["bound_ms"]
+                      / statistics.median(times),
+                      "plain_ms_a_member": plain_ms,
+                      "members_equal_to_plain": len(want),
+                      "timing": "one launch between two events, L2-warm "
+                                "after the first; plain: the members "
+                                "compared, on the host"})
+            for name, make in (("card", lambda f: bgzf.DeviceBgzfWriter(
+                    f, dev)), ("host", bgzf.ParallelBgzfWriter)):
+                sinks = []
+                for _ in range(3):
+                    sink = io.BytesIO()
+                    t0 = time.perf_counter()
+                    with make(sink) as writer:
+                        for i in range(0, len(data), 1 << 20):
+                            writer.write(data[i:i + (1 << 20)])
+                    sinks.append((time.perf_counter() - t0,
+                                  len(sink.getvalue())))
+                    if gzip.decompress(sink.getvalue()) != data:
+                        fail(f"{name} writer output does not inflate")
+                emit({"phase": "deflate_writer", "traffic": traffic,
+                      "writer": name, "input_bytes": len(data),
+                      "seconds": [t for t, _ in sinks],
+                      "mb_per_s": len(data) / 1e6 / min(t for t, _ in sinks),
+                      "output_bytes": sinks[0][1],
+                      "libdeflate": bgzf._libdeflate() is not None,
+                      "host_threads": min(4, os.cpu_count() or 1)})
+        deflate_cells(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return 0
+
+
+def deflate_cells(workdir: str, reads: int = 2_000_000) -> None:
+    """One job of each benchmark cell (its traffic at 2M reads, its
+    configuration's arguments) on the card: the output passes ``gzip
+    -t``, and its size beside the host writer's on the same records."""
+    from benchmark.generate import generate_traffic
+    from fastqdedup_tpu_torch.io import bgzf
+    from fastqdedup_tpu_torch.pipeline import deduplicate_cluster
+
+    for config, traffic, edit in (("hamming-d1", "dense", False),
+                                  ("edit-d1", "default", True)):
+        spec = json.load(open(os.path.join(
+            HERE, "benchmark", "traffic", traffic + ".json")))
+        inputs = generate_traffic(spec, reads, 2**31 + 13, workdir)
+        out = os.path.join(workdir, f"{config}.out.fastq.gz")
+        t0 = time.perf_counter()
+        deduplicate_cluster(inputs, [out], None, use_edit_distance=edit)
+        seconds = time.perf_counter() - t0
+        tested = subprocess.run(["gzip", "-t", out], capture_output=True,
+                                text=True)
+        if tested.returncode != 0:
+            fail(f"gzip -t {config}.{traffic}: {tested.stderr}")
+        records = gzip.open(out).read()
+        host = io.BytesIO()
+        with bgzf.ParallelBgzfWriter(host) as writer:
+            writer.write(records)
+        card_bytes = os.path.getsize(out)
+        emit({"phase": "deflate_cells", "cell": f"{config}.{traffic}",
+              "job_seconds": seconds, "records_bytes": len(records),
+              "card_bytes": card_bytes,
+              "host_bytes": len(host.getvalue()),
+              "card_over_host": card_bytes / len(host.getvalue()),
+              "gzip_t": "ok"})
+        if card_bytes > 1.03 * len(host.getvalue()):
+            fail(f"{config}.{traffic}: the card's output is more than 3% "
+                 f"over the host writer's")
+        for path in inputs + [out]:
+            os.unlink(path)
+
+
 def check_against_oracles(dev) -> dict:
     """The ``verify`` phase: ``bench_kernels_torch.verify_kernels`` on
     the card; returns the geometries checked, by kernel."""
@@ -1245,7 +1463,7 @@ def check_warmup() -> None:
           "warmup_launches": dict(kernel_lib.WARMUP_LAUNCHES)})
     if launch_counts() != before:
         fail("warmup() counted its launches as real work")
-    if set(kernel_lib.WARMUP_LAUNCHES) != set(KERNELS):
+    if set(kernel_lib.WARMUP_LAUNCHES) != set(before):
         fail(f"warmup() launched {sorted(kernel_lib.WARMUP_LAUNCHES)}, "
              f"not every kernel")
 
@@ -1270,16 +1488,20 @@ def environment(overrides):
 
 def launch_counts() -> dict:
     """Every kernel's launch count, by name."""
-    from fastqdedup_tpu_torch.ops import edit_kernels, hamming_kernels
+    from fastqdedup_tpu_torch.ops import (deflate_kernels, edit_kernels,
+                                          hamming_kernels)
 
-    return {**hamming_kernels.LAUNCHES, **edit_kernels.LAUNCHES}
+    return {**hamming_kernels.LAUNCHES, **edit_kernels.LAUNCHES,
+            **deflate_kernels.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    from fastqdedup_tpu_torch.ops import edit_kernels, hamming_kernels
+    from fastqdedup_tpu_torch.ops import (deflate_kernels, edit_kernels,
+                                          hamming_kernels)
 
     hamming_kernels.reset_launches()
     edit_kernels.reset_launches()
+    deflate_kernels.reset_launches()
 
 
 def run_pipeline(workdir: str, name: str, files: dict, tag: str,
@@ -2739,7 +2961,10 @@ def main(argv) -> int:
         return run_pair_list_batches(argv[1:])
     if argv[:1] == ["--rowwise-variants"]:
         return run_rowwise_variants(dev, argv[1:])
+    if argv == ["--deflate"]:
+        return run_deflate(dev)
     summary = check_kernels(dev)
+    summary["deflate_members"] = check_deflate(dev)
     if argv == ["--kernels"]:
         return 0
     oracle_geometries = check_against_oracles(dev)
@@ -2833,14 +3058,14 @@ def main(argv) -> int:
                "distributed": distributed_launches.get(name, 0)}
         for name in KERNELS}
     for name, counts in by_path.items():
-        path = "edit" if name == "banded_within_edit_distance" else "hamming"
-        if counts[path] == 0:
-            fail(f"the {path} path never launched {name}")
+        for path in KERNEL_PATHS.get(name, ("hamming",)):
+            if counts[path] == 0:
+                fail(f"the {path} path never launched {name}")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": sum(by_path[name].values()),
          "launches_by_path": by_path[name],
-         "oracle_geometries": oracle_geometries[name],
+         "oracle_geometries": oracle_geometries.get(name, 0),
          **summary[name]}
         for name, (source, replaces) in KERNELS.items()]})
     for line in smi:

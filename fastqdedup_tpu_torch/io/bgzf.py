@@ -9,8 +9,11 @@ native chunk parser (native/_fastq_io.c) does exactly that, which makes
 ingest scale across host cores instead of being bound by single-thread
 zlib inflate (~45 MB/s of compressed input).
 
-This module provides the writer side in pure Python (zlib raw deflate +
-hand-built member framing); outputs are deterministic (no mtime).
+This module provides the writer side: on the host in pure Python (zlib
+or libdeflate raw deflate + hand-built member framing), and on a CUDA
+card (:class:`DeviceBgzfWriter`, the port's deflate kernel).  Outputs
+are deterministic (no mtime); the two routes cut the stream into the
+same members, and their members inflate to the same bytes.
 """
 
 import ctypes
@@ -20,7 +23,9 @@ import threading
 import zlib
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import IO, Union
+from typing import IO, Dict, List, Union
+
+from ..utils import trace
 
 # Maximum uncompressed payload per block (matches bgzip: 65536 - 256
 # safety margin so level-0/incompressible data still fits the u16 BSIZE).
@@ -88,6 +93,7 @@ def _ld_compress(data: bytes, level: int):
 
 def compress_block(data: bytes, compresslevel: int = 1) -> bytes:
     """One BGZF member containing ``data`` (<= BLOCK_SIZE bytes)."""
+    trace.count("bytes.deflate.host", len(data))
     ld = _ld_compress(data, compresslevel)
     if ld is not None:
         payload, crc = ld
@@ -248,6 +254,7 @@ class ParallelBgzfWriter:
         """Copy ``view[:n]`` into a free slot and enqueue compression."""
         self._drain(block=not self._slots)
         slot = self._slots.popleft()
+        trace.count("bytes.deflate.host", n)
         slot.raw[:n] = view[:n]
         self._futures.append(
             self._pool.submit(_compress_into_slot, slot, n, self._level))
@@ -290,6 +297,220 @@ class ParallelBgzfWriter:
             self._file = None  # type: ignore[assignment]
 
     def __enter__(self) -> "ParallelBgzfWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+# Members in one window of the card writer: one block each, so 128 fill
+# all but 4 of an H100's 132 SMs in one wave; 128 x 65,280 input bytes
+# and 128 x 65,536 output bytes are each at most 8 MiB (PyTorch's pinned
+# allocator rounds a block up to a power of two).
+DEVICE_WINDOW_MEMBERS = 128
+# Windows one writer keeps in flight: the card compresses some while the
+# caller fills the next.
+DEVICE_WINDOWS = 3
+
+_windows: Dict[object, List["_DeviceWindow"]] = {}
+_streams: Dict[object, object] = {}
+_windows_lock = threading.Lock()
+
+
+class _DeviceWindow:
+    """One window of the card writer: pinned host buffers for the input
+    and the members, their device twins, the kernel's scratch, and the
+    event that marks the members back on the host.  Windows live in a
+    pool per device for the life of the process.  On the CPU device
+    (tests) the host buffers are the device's and nothing is pinned."""
+
+    def __init__(self, device) -> None:
+        import torch
+
+        from ..ops.deflate_kernels import OUT_STRIDE, scratch_bytes
+
+        members = DEVICE_WINDOW_MEMBERS
+        card = device.type == "cuda"
+
+        def pair(size, dtype):
+            host = torch.empty(size, dtype=dtype, pin_memory=card)
+            return host, (torch.empty(size, dtype=dtype, device=device)
+                          if card else host)
+
+        self.host_in, self.dev_in = pair(members * BLOCK_SIZE, torch.uint8)
+        self.host_out, self.dev_out = pair(members * OUT_STRIDE, torch.uint8)
+        self.host_len, self.dev_len = pair(members, torch.int32)
+        self.scratch = torch.empty(scratch_bytes(members) if card else 0,
+                                   dtype=torch.uint8, device=device)
+        self.event = torch.cuda.Event() if card else None
+        self.in_view = self.host_in.numpy()
+        self.out_view = memoryview(self.host_out.numpy())
+        self.fill = 0
+
+
+def _take_window(device) -> _DeviceWindow:
+    with _windows_lock:
+        pool = _windows.setdefault(device, [])
+        if pool:
+            return pool.pop()
+    return _DeviceWindow(device)
+
+
+def _give_back(window: _DeviceWindow, device) -> None:
+    window.fill = 0
+    with _windows_lock:
+        _windows.setdefault(device, []).append(window)
+
+
+def _stream(device):
+    """The process's stream for the card writer on ``device`` (None on
+    the CPU device)."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    with _windows_lock:
+        if device not in _streams:
+            _streams[device] = torch.cuda.Stream(device=device)
+        return _streams[device]
+
+
+def prepare_device_windows(device) -> None:
+    """Allocate one writer's windows on ``device`` ahead of its first
+    write (the warm-up's step)."""
+    held = [_take_window(device) for _ in range(DEVICE_WINDOWS)]
+    for window in held:
+        _give_back(window, device)
+
+
+class DeviceBgzfWriter:
+    """BGZF writer that deflates its members on a CUDA card.
+
+    The logical stream is cut into the members of :class:`BgzfWriter`,
+    at the same offsets.  Writes fill a pinned window of
+    ``DEVICE_WINDOW_MEMBERS`` members; a full window is copied to the
+    card, deflated by ``ops.deflate_kernels.deflate_members`` (one launch
+    on this writer's stream) and its members copied back, while the
+    caller fills the next window.  Members reach the file in order when
+    a window is retired: after each submit, every window whose members
+    are back; the oldest, once ``DEVICE_WINDOWS`` are in flight; all at
+    :meth:`close` (the waits are the span ``pass3.deflate_wait``).
+    Windows come from a pool per device that lives as long as the
+    process, so steady-state writes allocate nothing.  Members inflate to the stream's bytes; their compressed
+    bytes are the kernel's, not the host compressor's.
+    """
+
+    def __init__(self, file: Union[str, IO[bytes]], device) -> None:
+        if isinstance(file, str):
+            self._file: IO[bytes] = open(file, "wb")
+            self._owns = True
+        else:
+            self._file = file
+            self._owns = False
+        self._device = device
+        self._stream = _stream(device)
+        self._current: "_DeviceWindow | None" = None
+        self._inflight: deque = deque()
+
+    def write(self, data) -> int:
+        import numpy as np
+
+        src = np.frombuffer(memoryview(data).cast("B"), dtype=np.uint8)
+        pos, total = 0, len(src)
+        while pos < total:
+            if self._current is None:
+                while len(self._inflight) >= DEVICE_WINDOWS:
+                    self._retire()
+                self._current = _take_window(self._device)
+            window = self._current
+            take = min(len(window.in_view) - window.fill, total - pos)
+            window.in_view[window.fill:window.fill + take] = \
+                src[pos:pos + take]
+            window.fill += take
+            pos += take
+            if window.fill == len(window.in_view):
+                self._submit()
+                while self._inflight and self._inflight[0].event is not None \
+                        and self._inflight[0].event.query():
+                    self._retire()  # members back: write them now
+        return total
+
+    def _submit(self) -> None:
+        """Copy the current window up, deflate it, copy its members
+        back; nothing waits."""
+        import torch
+
+        from ..ops.deflate_kernels import OUT_STRIDE, deflate_members, \
+            members_of
+        from ..ops.kernel_lib import in_warmup
+
+        window, self._current = self._current, None
+        n = window.fill
+        out = members_of(n) * OUT_STRIDE
+        try:
+            if window.event is None:  # the CPU device: the plain version
+                deflate_members(window.dev_in, n, window.dev_out,
+                                window.dev_len, window.scratch)
+            else:
+                with torch.cuda.device(self._device), \
+                        torch.cuda.stream(self._stream):
+                    window.dev_in[:n].copy_(window.host_in[:n],
+                                            non_blocking=True)
+                    deflate_members(window.dev_in, n, window.dev_out,
+                                    window.dev_len, window.scratch)
+                    window.host_out[:out].copy_(window.dev_out[:out],
+                                                non_blocking=True)
+                    window.host_len.copy_(window.dev_len, non_blocking=True)
+                    window.event.record(self._stream)
+        except BaseException:
+            if self._stream is not None:
+                self._stream.synchronize()
+            _give_back(window, self._device)
+            raise
+        if not in_warmup():
+            trace.count("bytes.deflate.device", n)
+        self._inflight.append(window)
+
+    def _retire(self) -> None:
+        """Wait for the oldest window's members and write them."""
+        from ..ops.deflate_kernels import OUT_STRIDE, members_of
+
+        window = self._inflight.popleft()
+        try:
+            if window.event is not None:
+                with trace.span("pass3.deflate_wait"):
+                    window.event.synchronize()
+            lengths = window.host_len[:members_of(window.fill)].tolist()
+            for i, length in enumerate(lengths):
+                self._file.write(
+                    window.out_view[i * OUT_STRIDE:i * OUT_STRIDE + length])
+        finally:
+            _give_back(window, self._device)
+
+    def close(self) -> None:
+        if self._file is None:
+            return
+        try:
+            if self._current is not None:
+                if self._current.fill:
+                    self._submit()
+                else:
+                    _give_back(self._current, self._device)
+                    self._current = None
+            while self._inflight:
+                self._retire()
+            self._file.write(BGZF_EOF)
+        finally:
+            while self._inflight:  # after an error: free, do not write
+                window = self._inflight.popleft()
+                if window.event is not None:
+                    window.event.synchronize()
+                _give_back(window, self._device)
+            if self._owns:
+                self._file.close()
+            self._file = None  # type: ignore[assignment]
+
+    def __enter__(self) -> "DeviceBgzfWriter":
         return self
 
     def __exit__(self, *exc) -> None:

@@ -8,7 +8,10 @@ to level 1 like the reference's ``xopen(..., compresslevel=1)``.  Gzip
 writes produce BGZF (blocked gzip — readable by every gzip tool,
 block-parallel to produce and to re-ingest) with no mtime and fixed
 blocking, so outputs are deterministic byte-for-byte across runs and across
-single-/multi-host execution.
+single-/multi-host execution.  Where the port's device is a CUDA card, a
+level-1 gzip write deflates its members on the card
+(:class:`.bgzf.DeviceBgzfWriter`): the same members inflate to the same
+records, and the compressed bytes are the card's.
 """
 
 import gzip
@@ -49,6 +52,28 @@ def _open_zstd(filename: str, mode: str, compresslevel: Optional[int]):
     raise ImportError(f"unsupported zstandard backend for {filename!r}")
 
 
+def _deflate_device(level: int):
+    """The CUDA device a level-1 gzip write deflates on: the device the
+    port's kernels run on (``runtime.device()``), or None for the host's
+    compressor (a CPU device, no card, another level)."""
+    import torch
+
+    if level != 1 or not torch.cuda.is_available():
+        return None
+    from ..runtime import device
+
+    dev = device()
+    return dev if dev.type == "cuda" else None
+
+
+def deflates_on_card(filename: str,
+                     compresslevel: Optional[int] = 1) -> bool:
+    """Whether :func:`xopen` gives a write of ``filename`` at
+    ``compresslevel`` the card writer."""
+    return filename.endswith(".gz") and \
+        _deflate_device(compresslevel or 1) is not None
+
+
 def xopen(filename: str, mode: str = "rb", *,
           compresslevel: Optional[int] = 1,
           threads: int = 0) -> IO[bytes]:
@@ -75,7 +100,12 @@ def xopen(filename: str, mode: str = "rb", *,
             # no mtime), and block-parallel to both write here and
             # re-ingest later (the native parser inflates BGZF blocks
             # concurrently).  Matches how production genomics data is
-            # stored (bgzip).
+            # stored (bgzip).  On a card, the card deflates.
+            dev = _deflate_device(level)
+            if dev is not None:
+                from .bgzf import DeviceBgzfWriter
+                return DeviceBgzfWriter(  # type: ignore[return-value]
+                    filename, dev)
             from .bgzf import ParallelBgzfWriter
             return ParallelBgzfWriter(  # type: ignore[return-value]
                 filename, level)

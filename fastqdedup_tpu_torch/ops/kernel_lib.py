@@ -170,6 +170,8 @@ def library() -> ctypes.CDLL:
         lib.fqd_banded_within_edit.argtypes = [
             p, p, p, p, p, p, p, i64, i, i, p]
         lib.fqd_banded_within_edit.restype = i
+        lib.fqd_deflate_members.argtypes = [p, i64, p, p, p, p]
+        lib.fqd_deflate_members.restype = i
         lib.fqd_error_string.argtypes = [i]
         lib.fqd_error_string.restype = ctypes.c_char_p
         _lib = lib

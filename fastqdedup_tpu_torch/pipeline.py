@@ -41,7 +41,7 @@ from .dissect import (
 )
 from .engine import KeyGroups, build_partition_groups
 from .io.fastq import FastqChunk, FastqFormatError, read_fastq_chunks
-from .io.opener import xopen
+from .io.opener import deflates_on_card, xopen
 from .quality import ragged_average_error_rate
 from .utils import trace
 from .utils.ragged import (
@@ -1188,9 +1188,10 @@ def deduplicate_cluster(
     interpreter exit or when the process group is destroyed.
     """
     prewarm: List = []
+    prewarm_writer: List = []
     args = (input_files, output_files, check_slices, max_distance,
             max_average_error_rate, cluster_dissection_func,
-            use_edit_distance, chunk_records, prewarm)
+            use_edit_distance, chunk_records, prewarm, prewarm_writer)
     with trace.job():
         try:
             serial_again = False
@@ -1214,7 +1215,7 @@ def deduplicate_cluster(
         finally:
             # Only reached with a thread still listed when the run failed
             # before its own join: that failure is the one to report.
-            for thread in prewarm:
+            for thread in prewarm + prewarm_writer:
                 try:
                     thread.join()
                 except Exception:
@@ -1231,6 +1232,7 @@ def _deduplicate_cluster_impl(
     use_edit_distance: bool,
     chunk_records: int,
     prewarm: List,
+    prewarm_writer: List,
     split_ingest: bool = True,
 ) -> None:
     from .runtime import device, tune_host_allocator
@@ -1408,6 +1410,10 @@ def _deduplicate_cluster_impl(
         accumulate_futures = []
         global_base = 0
         prewarm_started = False
+        # Pass 3 writes through the card writer (a distributed job's part
+        # files are compressed on the host).
+        card_writer = not (nproc > 1 and not sharded_input) and any(
+            deflates_on_card(f) for f in output_files)
         if parallel_parts is not None:
             _chunk_iter: Iterator = iter(_parallel_range_chunks(
                 input_files, chunk_records, parallel_parts))
@@ -1474,21 +1480,27 @@ def _deduplicate_cluster_impl(
                     key_data, key_offsets, qual_data, qual_offsets = \
                         _chunk_keys(chunks, check_slices,
                                     use_qualities=filter_on_quality)
-                if not prewarm_started and max_distance > 0 \
-                        and global_base >= 100_000:
+                if not prewarm_started and global_base >= 100_000:
                     # Bring the card up while pass 1 is still parsing: the
                     # CUDA context, the kernel library and each kernel's
                     # first launch (warmup.py).  None on the CPU device.
                     # Small inputs never reach the device (the engine's host
-                    # path covers them), so they skip this.
+                    # path covers them), so they skip this.  The card
+                    # writer's deflate launch has a thread of its own,
+                    # joined before pass 3, where an output takes it.
                     prewarm_started = True
-                    from .warmup import prewarm_async
+                    from .warmup import prewarm_async, prewarm_deflate_async
                     thread = prewarm_async(
                         int(key_offsets[1] - key_offsets[0]),
                         max_distance=max_distance,
-                        use_edit_distance=use_edit_distance)
+                        use_edit_distance=use_edit_distance) \
+                        if max_distance > 0 else None
                     if thread is not None:
                         prewarm.append(thread)
+                    thread = prewarm_deflate_async() if card_writer \
+                        else None
+                    if thread is not None:
+                        prewarm_writer.append(thread)
                 b = chunks[0].count
                 total_records += b
                 trace.count("records.read", b)
@@ -1934,6 +1946,10 @@ def _deduplicate_cluster_impl(
                     f"({timer.get_difference()})")
 
     # ---------------- Pass 3: filtered rewrite ---------------------------
+    if prewarm_writer:
+        with trace.span("warmup.join"):
+            while prewarm_writer:
+                prewarm_writer.pop().join()  # raises what its work raised
     arena_ok = record_store is not None and not record_store.abandoned
     if nproc > 1 and record_store is not None:
         # Both pass-3 paths synchronize through collectives, so every
@@ -2053,7 +2069,8 @@ def _write_from_record_store(output_files: List[str], groups: KeyGroups,
             except BaseException as exc:  # surfaced after join
                 write_error.append(exc)
 
-    worker = threading.Thread(target=write_worker, daemon=True)
+    worker = threading.Thread(target=trace.carry(write_worker),
+                              daemon=True)
     worker.start()
     try:
         # Parts append in ingest-arrival order, which under parallel range
@@ -2201,7 +2218,8 @@ def _filter_and_write(input_files: List[str], output_files: List[str],
             except BaseException as exc:  # surfaced after join
                 write_error.append(exc)
 
-    worker = threading.Thread(target=write_worker, daemon=True)
+    worker = threading.Thread(target=trace.carry(write_worker),
+                              daemon=True)
     worker.start()
     if cached_chunks is not None:
         source = iter(cached_chunks)  # entries carry (base, chunks)

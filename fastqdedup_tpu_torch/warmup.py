@@ -93,13 +93,27 @@ def _launch_edit(dev, length: int, max_distance: int) -> None:
                                         max_distance)
 
 
+def _launch_deflate(dev) -> None:
+    """One launch of the deflate kernel: a short stream through the card
+    writer into memory, after the writer's windows on ``dev`` are
+    allocated (pinned host and device buffers, kept for the process)."""
+    import io
+
+    from .io.bgzf import DeviceBgzfWriter, prepare_device_windows
+
+    prepare_device_windows(dev)
+    with DeviceBgzfWriter(io.BytesIO(), dev) as writer:
+        writer.write(b"@warm-up\nACGTACGTACGT\n+\nIIIIIIIIIIII\n")
+
+
 def warmup(lengths=(32, 64, 128, 160), edit_distances=(1, 2),
            verbose: bool = True) -> None:
     """Create the context on the run's device (``runtime.device()``),
     build the kernel library if it is absent, load it and launch each of
-    the four kernels once per key length (the edit kernel once per distance too),
-    then wait for the device.  One line per step, with its seconds, goes
-    to stderr.  Raises where the device, the build or a launch fails."""
+    the four kernels once per key length (the edit kernel once per distance
+    too) and the deflate kernel once, then wait for the device.  One line
+    per step, with its seconds, goes to stderr.  Raises where the device,
+    the build or a launch fails."""
     import torch
 
     from .ops import kernel_lib
@@ -123,6 +137,9 @@ def warmup(lengths=(32, 64, 128, 160), edit_distances=(1, 2),
              kernel_lib.build_kernels)
         step("kernel library load", kernel_lib.library)
     with kernel_lib.counting_as_warmup():
+        if on_card:
+            step("deflate kernel and the card writer's windows",
+                 lambda: _launch_deflate(dev))
         for length in lengths:
             step(f"all-pairs and pair-list kernels L={length}",
                  lambda: _launch_hamming(dev, length, 5, 1))
@@ -206,6 +223,46 @@ def prewarm_async(length: int, alphabet_size: int = 5,
                 else:
                     _launch_hamming(dev, length, alphabet_size,
                                     max_distance)
+            torch.cuda.synchronize(dev)
+
+    thread = PrewarmThread(trace.carry(work))
+    thread.start()
+    return thread
+
+
+_deflate_prewarmed = False
+
+
+def prewarm_deflate_async() -> Optional[PrewarmThread]:
+    """Launch the deflate kernel once through the card writer, whose
+    windows it allocates (pinned host buffers and their device twins,
+    kept for the process), on a daemon thread; returns it started.  The
+    pipeline asks for it beside pass 1's ingest where an output takes
+    the card writer, and joins it before pass 3, so the pinning is off
+    the path to pass 2 and the first job's pass 3 loads no module.
+
+    Returns ``None`` when the run's device is not CUDA, and from the
+    second call on: the windows stay for the life of the process.
+    """
+    global _deflate_prewarmed
+    from .runtime import device
+
+    dev = device()
+    if dev.type != "cuda":
+        return None
+    with _prewarm_lock:
+        if _deflate_prewarmed:
+            return None
+        _deflate_prewarmed = True
+
+    def work() -> None:
+        import torch
+
+        from .ops import kernel_lib
+
+        with trace.span("warmup.launches"):
+            with kernel_lib.counting_as_warmup():
+                _launch_deflate(dev)
             torch.cuda.synchronize(dev)
 
     thread = PrewarmThread(trace.carry(work))

@@ -101,7 +101,10 @@ def test_bench_prints_one_line_with_the_jax_package_bytes(tmp_path):
     assert line["device_busy_share"] is None  # no device time on the CPU
     assert set(line["launches"]) == {
         "bucket_within_packed", "within_tile_packed",
-        "rowwise_within_packed", "banded_within_edit_distance"}
+        "rowwise_within_packed", "banded_within_edit_distance",
+        "deflate_members"}
+    # The output is deflated on the card only: the CPU run uses the host.
+    assert line["launches"]["deflate_members"] == 0
     src = str(tmp_path / "same.fastq.gz")
     bench.generate_fastq(src, 3000, 100, 12)
     assert line["sha256"] == jax_sha256(src)

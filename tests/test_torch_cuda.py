@@ -434,15 +434,18 @@ def test_packed_verify_on_card_equals_unpacked(cuda_device, d):
 def test_warmup_on_card_counts_apart(cuda_device, monkeypatch, capsys):
     """``warmup()`` returns without error on the card, launches every
     kernel, and counts none of it as real work; ``prewarm_async`` gives
-    a thread once per geometry whose join raises nothing."""
+    a thread once per geometry whose join raises nothing, and
+    ``prewarm_deflate_async`` one a process."""
     from fastqdedup_tpu_torch import warmup
     from fastqdedup_tpu_torch.ops import kernel_lib
     from fastqdedup_tpu_torch.utils import trace
 
+    from fastqdedup_tpu_torch.ops import deflate_kernels as dk
+
     monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", "cuda")
-    before = {**hk.LAUNCHES, **ek.LAUNCHES}
+    before = {**hk.LAUNCHES, **ek.LAUNCHES, **dk.LAUNCHES}
     warmup.warmup(lengths=(100,), edit_distances=(1, 2))
-    assert {**hk.LAUNCHES, **ek.LAUNCHES} == before
+    assert {**hk.LAUNCHES, **ek.LAUNCHES, **dk.LAUNCHES} == before
     assert set(kernel_lib.WARMUP_LAUNCHES) == set(before)
     assert "kernel library load" in capsys.readouterr().err
     monkeypatch.setattr(warmup, "_prewarmed_geometries", set())
@@ -457,7 +460,14 @@ def test_warmup_on_card_counts_apart(cuda_device, monkeypatch, capsys):
                 if s.name.startswith("warmup.")] == [
             "warmup.context", "warmup.library", "warmup.launches"]
         assert warmup.prewarm_async(100, 5, 1, edit) is None
-    assert {**hk.LAUNCHES, **ek.LAUNCHES} == before
+    assert {**hk.LAUNCHES, **ek.LAUNCHES, **dk.LAUNCHES} == before
+    # The card writer's thread: one deflate launch, counted as warm-up.
+    monkeypatch.setattr(warmup, "_deflate_prewarmed", False)
+    warm = kernel_lib.WARMUP_LAUNCHES["deflate_members"]
+    warmup.prewarm_deflate_async().join(timeout=120)
+    assert kernel_lib.WARMUP_LAUNCHES["deflate_members"] == warm + 1
+    assert warmup.prewarm_deflate_async() is None
+    assert {**hk.LAUNCHES, **ek.LAUNCHES, **dk.LAUNCHES} == before
 
 
 # --------------------------------------------------------------------- #
@@ -720,3 +730,125 @@ def test_edit_key_upload_wait_is_one_span_a_call(cuda_device, monkeypatch):
     waits = [s for s in spans if s.name == "pairs.key_upload_wait"]
     assert len(waits) == 2
     assert all(by_id[s.parent].name == "pairs.edit_verify" for s in waits)
+
+
+# The deflate kernel (csrc/deflate.cu) and the card writer
+
+
+def _deflate_inputs():
+    """name -> bytes of one window: FASTQ, edge sizes, stored blocks."""
+    rng = np.random.default_rng(21)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+
+    def fastq(n, seed):
+        r = np.random.default_rng(seed)
+        return b"".join(
+            b"@read%09d\n%s\n+\n%s\n" % (
+                i, bytes(r.choice(bases, 100)),
+                bytes(33 + r.integers(30, 41, 100, dtype=np.uint8)))
+            for i in range(n))
+
+    reads = fastq(6000, 1)
+    return {
+        "one_byte": b"x",
+        "three_bytes": b"abc",
+        "one_member": reads[:65280],
+        "one_member_and_one_byte": reads[:65281],
+        "members_and_a_tail": reads[:3 * 65280 + 12345],
+        "full_window": (reads * 7)[:128 * 65280],
+        "random": rng.integers(0, 256, 2 * 65280 + 7,
+                               dtype=np.uint8).tobytes(),
+        "zeros": bytes(65280 + 300),
+        "skewed": rng.geometric(0.3, 130000).clip(0, 255)
+        .astype(np.uint8).tobytes(),
+        "pattern": b"ACGTTGCA" * 9000,
+        "mutated_repeats": _mutated_repeats(rng),
+    }
+
+
+def _mutated_repeats(rng):
+    """A 257-byte unit repeated over two members with 1 byte in 50
+    changed: long matches that end at random places."""
+    data = np.resize(rng.integers(0, 256, 257, dtype=np.uint8),
+                     2 * 65280 - 11)
+    hit = rng.integers(0, len(data), len(data) // 50)
+    data[hit] = rng.integers(0, 256, len(hit), dtype=np.uint8)
+    return data.tobytes()
+
+
+@pytest.mark.parametrize("name", sorted(_deflate_inputs()))
+def test_deflate_kernel_matches_plain(cuda_device, name):
+    from fastqdedup_tpu_torch.ops import deflate_kernels as dk
+
+    data = _deflate_inputs()[name]
+    members = dk.members_of(len(data))
+    host = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    want_out = torch.zeros(members * dk.OUT_STRIDE, dtype=torch.uint8)
+    want_len = torch.zeros(members, dtype=torch.int32)
+    dk.deflate_members(host, len(data), want_out, want_len, None)
+    out = torch.zeros(members * dk.OUT_STRIDE, dtype=torch.uint8,
+                      device=cuda_device)
+    lens = torch.zeros(members, dtype=torch.int32, device=cuda_device)
+    scratch = torch.empty(dk.scratch_bytes(members), dtype=torch.uint8,
+                          device=cuda_device)
+    before = dk.LAUNCHES["deflate_members"]
+    dk.deflate_members(host.to(cuda_device), len(data), out, lens, scratch)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES["deflate_members"] == before + 1
+    assert torch.equal(lens.cpu(), want_len)
+    got, want = out.cpu().numpy(), want_out.numpy()
+    blob = b""
+    for i, n in enumerate(want_len.tolist()):
+        member = got[i * dk.OUT_STRIDE:i * dk.OUT_STRIDE + n]
+        assert np.array_equal(member,
+                              want[i * dk.OUT_STRIDE:i * dk.OUT_STRIDE + n])
+        blob += member.tobytes()
+    assert gzip.decompress(blob) == data
+
+
+def _pipeline_on_card(tmp_path, name, tag):
+    """One run of chip_smoke's pinned input ``name`` on the card: the
+    output file's bytes, the deflate launches."""
+    import chip_smoke
+
+    from fastqdedup_tpu_torch import dissect
+    from fastqdedup_tpu_torch.ops import deflate_kernels as dk
+    from fastqdedup_tpu_torch.pipeline import deduplicate_cluster
+
+    files, check, d, method, edit = chip_smoke.INPUTS[name]
+    paths = chip_smoke.generate_files(str(tmp_path), files)
+    out = str(tmp_path / f"{name}-{tag}.fastq.gz")
+    before = dk.LAUNCHES["deflate_members"]
+    deduplicate_cluster([paths[f] for f in files], [out], None,
+                        max_distance=d, use_edit_distance=edit,
+                        cluster_dissection_func=getattr(
+                            dissect, f"cluster_dissection_{method}"))
+    torch.cuda.synchronize()
+    with open(out, "rb") as f:
+        return f.read(), dk.LAUNCHES["deflate_members"] - before
+
+
+@pytest.mark.parametrize("name", ["small", "default", "edit"])
+def test_pipeline_on_card_deflates_there_and_keeps_its_pin(
+        cuda_device, monkeypatch, tmp_path, name):
+    """The card writes the pinned records (decompressed sha256), deflated
+    by the kernel, the same file twice, at most 3% over the host
+    writer's size."""
+    import hashlib
+
+    import chip_smoke
+
+    from fastqdedup_tpu_torch.io.bgzf import ParallelBgzfWriter
+
+    monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", "cuda")
+    first, launched = _pipeline_on_card(tmp_path, name, "a")
+    second, _ = _pipeline_on_card(tmp_path, name, "b")
+    records = gzip.decompress(first)
+    assert hashlib.sha256(records).hexdigest() == \
+        chip_smoke.EXPECTED_SHA256[name]
+    assert launched >= 1
+    assert second == first
+    host = tmp_path / "host.fastq.gz"
+    with ParallelBgzfWriter(str(host)) as writer:
+        writer.write(records)
+    assert len(first) <= 1.03 * host.stat().st_size

@@ -31,6 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _cpu_device(monkeypatch):
     monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", "cpu")
     monkeypatch.setattr(torch_warmup, "_prewarmed_geometries", set())
+    monkeypatch.setattr(torch_warmup, "_deflate_prewarmed", False)
 
 
 @pytest.fixture
@@ -46,7 +47,7 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: None)
     monkeypatch.setattr(kernel_lib, "library", lambda: None)
     cpu = torch.device("cpu")
-    for name in ("_launch_hamming", "_launch_edit"):
+    for name in ("_launch_hamming", "_launch_edit", "_launch_deflate"):
         inner = getattr(torch_warmup, name)
         monkeypatch.setattr(
             torch_warmup, name,
@@ -90,6 +91,38 @@ def test_second_call_for_one_geometry_returns_none(fake_card, edit):
     assert other is not None
     other.join(timeout=60)
     assert not other.is_alive()
+
+
+def test_prewarm_deflate_async_returns_none_on_cpu_device():
+    assert torch_warmup.prewarm_deflate_async() is None
+
+
+def test_deflate_prewarm_is_a_thread_of_its_own(fake_card, monkeypatch):
+    """The dedup kernels' thread leaves the deflate kernel alone; the
+    card writer's thread launches it once, counted as warm-up, in one
+    ``warmup.launches`` span under its caller, and only once a process."""
+    launched = []
+    inner = torch_warmup._launch_deflate
+
+    def spy(dev):
+        launched.append(kernel_lib.in_warmup())
+        inner(dev)
+
+    monkeypatch.setattr(torch_warmup, "_launch_deflate", spy)
+    for edit in (False, True):
+        torch_warmup.prewarm_async(24, 5, 1, edit).join(timeout=60)
+    assert launched == []
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.span("caller") as caller:
+            thread = torch_warmup.prewarm_deflate_async()
+        assert thread.name == "fastqdedup-prewarm" and thread.daemon
+        thread.join(timeout=60)
+    assert not thread.is_alive() and launched == [True]
+    steps = [s for s in trace.spans() if s.name.startswith("warmup.")]
+    assert [(s.name, s.parent) for s in steps] == [
+        ("warmup.launches", caller.id)]
+    assert torch_warmup.prewarm_deflate_async() is None
 
 
 def test_exception_in_thread_reaches_the_join(fake_card, monkeypatch):
@@ -187,6 +220,43 @@ def test_pipeline_starts_and_joins_the_thread(tmp_path, monkeypatch):
         deduplicate_cluster([src], [out], None, 2, 1.0,
                             use_edit_distance=True, chunk_records=20_000)
     assert calls[-1] == (16, 2, True) and len(joined) == 2
+
+
+@pytest.mark.parametrize("out_name, max_distance, asked", [
+    ("out.fastq.gz", 1, True), ("out.fastq.gz", 0, True),
+    ("out.fastq", 1, False)])
+def test_pipeline_prewarms_the_card_writer_for_gz_outputs(
+        tmp_path, monkeypatch, out_name, max_distance, asked):
+    """Pass 1 asks for the card writer's thread once, after 100,000
+    records, only where an output takes the card writer (whatever the
+    distance); the run joins it before pass 3 opens the output."""
+    import gzip
+    import random
+
+    import fastqdedup_tpu_torch.pipeline as pipeline
+
+    rng = random.Random(5)
+    src = str(tmp_path / "in.fastq.gz")
+    with gzip.open(src, "wt") as f:
+        for i in range(110_000):
+            seq = "".join(rng.choice("ACGT") for _ in range(12))
+            f.write(f"@r{i}\n{seq}\n+\n{'I' * 12}\n")
+    out = str(tmp_path / out_name)
+    joined = []
+
+    class FakeThread:
+        def join(self, timeout=None):
+            joined.append(os.path.exists(out))
+
+    monkeypatch.setattr(pipeline, "deflates_on_card",
+                        lambda name, level=1: name.endswith(".gz"))
+    monkeypatch.setattr(torch_warmup, "prewarm_async",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(torch_warmup, "prewarm_deflate_async",
+                        lambda: FakeThread())
+    pipeline.deduplicate_cluster([src], [out], None, max_distance, 1.0,
+                                 chunk_records=20_000)
+    assert joined == ([False] if asked else [])
 
 
 def test_pipeline_joins_the_thread_on_its_error_path(tmp_path, monkeypatch):
