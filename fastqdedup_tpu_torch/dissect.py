@@ -12,9 +12,11 @@ semantics of the reference (/root/reference/src/fastqdedup/__init__.py:60-130):
   artifact heuristic), and absorbed reads themselves become templates.
 
 The public functions below take ``List[Tuple[count, str]]`` and call a
-distance oracle per pair, exactly like the reference API.  The pipeline uses
-:func:`dissect_with_adjacency` instead, which consumes a precomputed
-adjacency (from the TPU pairwise kernels) and never computes distances.
+distance oracle per pair, exactly like the reference API.  The pipeline
+calls :func:`dissect_partition` instead, which dissects every cluster of a
+partition from its precomputed adjacency (from the pairwise kernels) and
+never computes distances; :func:`dissect_with_adjacency` is its
+per-cluster oracle.
 
 Key order-independence fact exploited here: the reference's directional
 absorption loop (append-while-iterating BFS, __init__.py:78-90) absorbs
@@ -23,11 +25,19 @@ exactly the set of reads *reachable* from the origin through directed edges
 the reads remaining in that round, so any BFS order yields the same set.
 """
 
-from typing import Callable, Dict, Iterator, List, Sequence, Set, Tuple
+import logging
+from typing import (TYPE_CHECKING, Callable, Dict, Iterator, List, Optional,
+                    Sequence, Set, Tuple)
 
 import numpy as np
 
 from .distance import within_distance
+from .utils import trace
+
+if TYPE_CHECKING:
+    from .engine import KeyGroups, Partition
+
+logger = logging.getLogger("fastqdedup")
 
 DEFAULT_MAX_DISTANCE = 1
 
@@ -298,3 +308,289 @@ def dissect_with_adjacency(method: str,
     if method == "directional":
         return [cluster[i][1] for i in _directional_rounds(cluster, oracle)]
     raise ValueError(f"Unknown cluster dissection method: {method}")
+
+
+def _method_name_for(func: ClusterDissectionFunc) -> Optional[str]:
+    for name, known in CLUSTER_DISSECTION_METHODS.items():
+        if func is known:
+            return name
+    return None
+
+
+def _lexicographic_rank(rows: np.ndarray) -> np.ndarray:
+    """int64 [m] ascending rank of the rows of a C-contiguous uint8
+    matrix in memcmp order.  Threaded C sample sort when available (5-10x
+    numpy's void argsort at millions of rows); the rows are distinct
+    keys, so the order is total either way."""
+    try:
+        from .native.loader import rank_rows_native
+        return rank_rows_native(rows)
+    except (ImportError, ValueError):
+        pass
+    void = rows.view(np.dtype((np.void, rows.shape[1]))).ravel()
+    rank = np.empty(len(rows), dtype=np.int64)
+    rank[np.argsort(void, kind="stable")] = np.arange(len(rows),
+                                                     dtype=np.int64)
+    return rank
+
+
+def _concat_spans(span_starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """The indices of the spans ``[start, start + len)``, concatenated."""
+    total = int(lens.sum())
+    offs = np.zeros(len(lens), dtype=np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    return np.repeat(span_starts - offs, lens) + \
+        np.arange(total, dtype=np.int64)
+
+
+class _KeyTable:
+    """Global key indices of a :class:`KeyGroups` as raw bytes, ranks and
+    kept-mask entries."""
+
+    def __init__(self, groups: "KeyGroups"):
+        self.groups = groups
+        # Single length group (the common case): key index == row index,
+        # so the ~n-sized searchsorted map and per-call np.unique grouping
+        # are skipped entirely — they are replicated on every host at P>1.
+        self.single_group = len(groups.lengths) == 1
+        self.group_of_key = None if self.single_group else np.searchsorted(
+            groups.starts, np.arange(groups.n, dtype=np.int64),
+            side="right") - 1
+        self._row_maps: Dict[int, Dict[bytes, int]] = {}
+
+    def member_bytes(self, members: np.ndarray) -> np.ndarray:
+        """Raw key bytes of ``members`` as a zero-padded uint8 matrix —
+        zero-padding makes row-wise lexicographic comparison match Python
+        str order across mixed lengths (shorter prefix sorts first)."""
+        groups = self.groups
+        if self.single_group:
+            length = groups.lengths[0]
+            if not length:
+                return np.zeros((len(members), 1), dtype=np.uint8)
+            return groups.voids[0][members].view(np.uint8).reshape(
+                len(members), length)
+        g = self.group_of_key[members]
+        rows = members - groups.starts[g]
+        width = max(max((groups.lengths[int(gi)] for gi in np.unique(g)),
+                        default=1), 1)
+        padded = np.zeros((len(members), width), dtype=np.uint8)
+        for gi in np.unique(g):
+            length = groups.lengths[int(gi)]
+            sel = np.flatnonzero(g == gi)
+            if length:
+                raw = groups.voids[int(gi)][rows[sel]].view(np.uint8)
+                padded[sel, :length] = raw.reshape(len(sel), length)
+        return padded
+
+    def rank(self, members: np.ndarray) -> np.ndarray:
+        """Ascending lexicographic rank of the members' key strings
+        (Python str order across mixed lengths)."""
+        return _lexicographic_rank(
+            np.ascontiguousarray(self.member_bytes(members)))
+
+    def mark(self, kept_mask: List[np.ndarray], idx: np.ndarray) -> None:
+        if self.single_group:
+            kept_mask[0][idx] = True
+            return
+        g = self.group_of_key[idx]
+        rows = idx - self.groups.starts[g]
+        for gi in np.unique(g):
+            kept_mask[gi][rows[g == gi]] = True
+
+    def index_of(self, key: bytes) -> Optional[int]:
+        """Global index of ``key``, or None for a string that is no key.
+
+        A user-supplied dissection strategy may yield a string that is not
+        one of the cluster's keys; the reference tolerated that (unknown
+        hashes simply never matched in pass 3, __init__.py:203-206), so
+        unknown keys are skipped, not marked.  Lookup goes through a
+        lazily built per-group dict (group order may be hash-based, so
+        binary search does not apply); only custom strategies come here.
+        """
+        groups = self.groups
+        g = groups.group_index_of_length(len(key))
+        if g is None:
+            logger.debug("dissection yielded unknown key of length "
+                         f"{len(key)}; ignored")
+            return None
+        if len(key) == 0:
+            return int(groups.starts[g]) if len(groups.counts[g]) else None
+        rows_map = self._row_maps.get(g)
+        if rows_map is None:
+            raw = groups.voids[g].tobytes()
+            length = groups.lengths[g]
+            rows_map = {raw[i * length:(i + 1) * length]: i
+                        for i in range(len(groups.counts[g]))}
+            self._row_maps[g] = rows_map
+        row = rows_map.get(key)
+        if row is None:
+            logger.debug("dissection yielded unknown key; ignored")
+            return None
+        return int(groups.starts[g]) + row
+
+
+def _two_member_kept(method: str, part: "Partition", sizes: np.ndarray,
+                     counts: np.ndarray, keys: _KeyTable, pid: int,
+                     nproc: int) -> List[np.ndarray]:
+    """Two-member components, closed form: connectivity implies the single
+    within-distance edge exists, so adjacency/highest_count keep only the
+    max (count, key); directional also keeps the minor read unless the
+    count gate 2*c - 1 <= count(origin) absorbs it (reference
+    __init__.py:84,99-101).  Count ties break on key bytes (== latin-1
+    string order), fetched only when needed."""
+    pair_starts = part.starts[sizes == 2][pid::nproc]
+    a_idx = part.order[pair_starts]
+    b_idx = part.order[pair_starts + 1]
+    ca = counts[a_idx]
+    cb = counts[b_idx]
+    hi_idx = np.where(ca > cb, a_idx, b_idx)
+    lo_idx = np.where(ca > cb, b_idx, a_idx)
+    ties = np.flatnonzero(ca == cb)
+    if len(ties):
+        # Count ties are the COMMON case (two count-1 variants), so the
+        # string tie-break is vectorized: first differing byte decides
+        # (keys are distinct, so one always exists — for a strict-prefix
+        # pair, edit mode only, the zero pad loses to any real byte,
+        # matching Python str order).  One combined call so both sides
+        # share the same pad width (edit-mode pairs can mix lengths).
+        both = keys.member_bytes(np.concatenate([a_idx[ties], b_idx[ties]]))
+        av = both[:len(ties)]
+        bv = both[len(ties):]
+        first = np.argmax(av != bv, axis=1)
+        sel = np.arange(len(ties))
+        swap = ties[av[sel, first] > bv[sel, first]]
+        hi_idx[swap] = a_idx[swap]
+        lo_idx[swap] = b_idx[swap]
+    if method != "directional":
+        return [hi_idx]
+    return [hi_idx, lo_idx[2 * counts[lo_idx] - 1 > counts[hi_idx]]]
+
+
+def _big_cluster_kept(method: Optional[str], part: "Partition",
+                      big: np.ndarray, counts: np.ndarray, keys: _KeyTable,
+                      pid: int, nproc: int,
+                      oracle: Callable[[List[Tuple[int, str]]],
+                                       Iterator[str]]
+                      ) -> List[np.ndarray]:
+    """Kept keys of the clusters ``big``: up to 64 members in one lockstep
+    batch (built-in methods), the rest one by one — by CSR (built-in) or
+    through ``oracle``, the user's strategy on (count, str) tuples."""
+    kept: List[np.ndarray] = []
+    with trace.span("dissect.batched"):
+        # Group the edge list by cluster once (sort + searchsorted spans).
+        edge_cluster = part.cluster_of[part.edges_i]
+        edge_order = np.argsort(edge_cluster, kind="stable")
+        sorted_ec = edge_cluster[edge_order]
+        el_i = part.local_index[part.edges_i[edge_order]]
+        el_j = part.local_index[part.edges_j[edge_order]]
+        span_starts = np.searchsorted(sorted_ec, big)
+        span_ends = np.searchsorted(sorted_ec, big + 1)
+        big_sizes = part.ends[big] - part.starts[big]
+        owned = np.arange(len(big)) % nproc == pid
+        # Clusters up to 64 members dissect TOGETHER in one lockstep
+        # vectorized pass (dissect_indices_batched): at production scale
+        # there are ~a million of them and per-cluster Python setup alone
+        # costs minutes.  Larger clusters use the per-cluster CSR path.
+        batch_mask = owned & (big_sizes <= 64) if method is not None \
+            else np.zeros(len(big), dtype=bool)
+        bsel = np.flatnonzero(batch_mask)
+        if len(bsel):
+            lens = big_sizes[bsel]
+            members = part.order[_concat_spans(part.starts[big[bsel]], lens)]
+            elens = span_ends[bsel] - span_starts[bsel]
+            epos = _concat_spans(span_starts[bsel], elens)
+            moffs = np.zeros(len(lens), dtype=np.int64)
+            np.cumsum(lens[:-1], out=moffs[1:])
+            eoff = np.repeat(moffs, elens)
+            kept_b = dissect_indices_batched(
+                method, counts[members], keys.rank(members), lens,
+                el_i[epos] + eoff, el_j[epos] + eoff)
+            kept.append(members[kept_b])
+    with trace.span("dissect.large"):
+        chosen_keys: List[int] = []
+        for k in np.flatnonzero(owned & ~batch_mask):
+            c = big[k]
+            es, ee = span_starts[k], span_ends[k]
+            members = part.order[part.starts[c]:part.ends[c]]
+            if method is not None:
+                # Index-based vectorized dissection: no per-member Python
+                # tuples, CSR BFS instead of list scans — giant clusters
+                # (low-complexity libraries) stay near O(edges).
+                kept.append(members[dissect_indices(
+                    method, counts[members], keys.rank(members),
+                    el_i[es:ee], el_j[es:ee])])
+                continue
+            cluster_list = [(int(counts[i]),
+                             keys.groups.key_bytes(int(i)).decode("latin-1"))
+                            for i in members]
+            # dict.fromkeys: tolerate a custom strategy yielding repeats.
+            for string in dict.fromkeys(oracle(cluster_list)):
+                index = keys.index_of(string.encode("latin-1"))
+                if index is not None:
+                    chosen_keys.append(index)
+        if chosen_keys:
+            kept.append(np.asarray(chosen_keys, dtype=np.int64))
+    return kept
+
+
+@trace.spanned("pass2.dissect")
+def dissect_partition(groups: "KeyGroups", part: "Partition",
+                      cluster_dissection_func: ClusterDissectionFunc,
+                      max_distance: int, use_edit_distance: bool,
+                      shard: Tuple[int, int] = (0, 1),
+                      gather: Optional[Callable[[np.ndarray],
+                                                np.ndarray]] = None
+                      ) -> List[np.ndarray]:
+    """The kept keys of every cluster of ``part``, as one boolean mask
+    per length group of ``groups`` (clusters are disjoint, so each key is
+    decided exactly once); pass 3 emits the first occurrences of the
+    marked keys.
+
+    Singletons are kept wholesale.  A built-in method takes two-member
+    clusters in closed form, clusters of 3-64 members in one lockstep
+    batch and larger ones one by one over a CSR adjacency; a
+    user-supplied ``cluster_dissection_func`` sees every cluster of two
+    or more as the reference's ``(count, str)`` list.
+
+    ``shard=(pid, nproc)``: a built-in method dissects only every
+    ``nproc``-th cluster of two or more from ``pid`` on, and ``gather``
+    (for instance an all-gather across processes) turns this shard's
+    kept key indices into every shard's before they are marked.  A
+    user-supplied strategy ignores ``shard``: it runs on every cluster
+    wherever it is called (determinism is its documented contract).
+    """
+    keys = _KeyTable(groups)
+    kept_mask = [np.zeros(len(c), dtype=bool) for c in groups.counts]
+    sizes = part.sizes()
+    with trace.span("dissect.singletons"):
+        if keys.single_group and len(part.cluster_of) == groups.n:
+            # Vectorized: key row i is a singleton iff its cluster has one
+            # member — a sequential gather+compare instead of a ~n-sized
+            # random scatter (this mark is inherently global on every
+            # host).
+            np.logical_or(kept_mask[0], sizes[part.cluster_of] == 1,
+                          out=kept_mask[0])
+        else:
+            keys.mark(kept_mask, part.order[part.starts[sizes == 1]])
+    method = _method_name_for(cluster_dissection_func)
+    pid, nproc = shard if method is not None else (0, 1)
+    counts = groups.counts_concat()
+    kept: List[np.ndarray] = []
+    if method is not None:
+        with trace.span("dissect.two_member"):
+            kept += _two_member_kept(method, part, sizes, counts, keys, pid,
+                                     nproc)
+        big = np.flatnonzero(sizes >= 3)
+    else:
+        big = np.flatnonzero(sizes >= 2)
+    if len(big):
+        kept += _big_cluster_kept(
+            method, part, big, counts, keys, pid, nproc,
+            lambda cluster: cluster_dissection_func(
+                cluster, max_distance, use_edit_distance))
+    idx = np.concatenate(kept) if kept else np.empty(0, dtype=np.int64)
+    if gather is not None:
+        idx = gather(idx)
+    if len(idx):
+        keys.mark(kept_mask, idx)
+    return kept_mask

@@ -26,9 +26,12 @@ batch execution:
   SURVEY.md section 5).
 """
 
+import functools
+import gc
 import logging
 import os
-from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple, Union
+from typing import (Callable, Dict, Iterator, List, NamedTuple, Optional,
+                    Tuple, Union)
 
 import numpy as np
 
@@ -36,8 +39,7 @@ from .dissect import (
     CLUSTER_DISSECTION_METHODS,
     ClusterDissectionFunc,
     cluster_dissection_directional,
-    dissect_indices,
-    dissect_indices_batched,
+    dissect_partition,
 )
 from .engine import KeyGroups, build_partition_groups
 from .io.fastq import FastqChunk, FastqFormatError, read_fastq_chunks
@@ -70,13 +72,6 @@ def _total_ram_bytes() -> int:
     except OSError:
         pass
     return 32 * 1024 ** 3
-
-
-def _method_name_for(func: ClusterDissectionFunc) -> Optional[str]:
-    for name, known in CLUSTER_DISSECTION_METHODS.items():
-        if func is known:
-            return name
-    return None
 
 
 def _slice_chunk(chunk: FastqChunk, start: int, stop: int) -> FastqChunk:
@@ -264,45 +259,6 @@ def _zip_chunks(input_files: List[str], chunk_records: int,
             input_files, chunk_records, [(range_plan, 0)],
             queue_depth=prefetch):
         yield chunks
-
-
-_CACHE_FAULT_THRESHOLD = float(os.environ.get(
-    "FASTQDEDUP_CACHE_FAULT_THRESHOLD", "1.5"))  # seconds per GiB
-
-
-def _observed_fault_cost_cached() -> float:
-    from .runtime import observed_fault_cost
-    return observed_fault_cost() or 0.0
-
-
-def _fault_cost_too_high() -> bool:
-    """True when measured page-creation cost exceeds the threshold where
-    re-parsing the (page-cached) input beats holding parsed chunks.
-
-    Re-parse costs ~0.9 s/GiB of payload on this class of host (parallel
-    BGZF inflate through recycled buffers); caching costs the observed
-    populate/fault rate per GiB held.  The threshold errs toward caching
-    (healthy hosts measure well under 0.5 s/GiB)."""
-    cost = _observed_fault_cost_cached()
-    return cost > _CACHE_FAULT_THRESHOLD
-
-
-def _compact_chunk(chunk: FastqChunk) -> FastqChunk:
-    """Copy a chunk out of its (possibly much larger) parse buffers."""
-    from .runtime import big_empty
-
-    def own(a: np.ndarray) -> np.ndarray:
-        base = a.base if isinstance(a.base, np.ndarray) else a
-        # Copy when the view pins >12.5% slack in its base allocation.
-        if base.nbytes > a.nbytes + (a.nbytes >> 3):
-            out = big_empty(a.shape, dtype=a.dtype)
-            np.copyto(out, a)
-            return out
-        return a
-
-    return FastqChunk(own(chunk.sequences), own(chunk.qualities),
-                      own(chunk.offsets), own(chunk.headers),
-                      own(chunk.header_offsets))
 
 
 def _truncate_chunk(chunk: FastqChunk, count: int) -> FastqChunk:
@@ -508,10 +464,10 @@ class _RecordArenaStore:
     __init__.py:203-206), and every such record announces itself in
     pass 1 as the insert of a previously-unseen key.  Rendering those
     records to FASTQ bytes at insert time turns pass 3 into a pure
-    gather + compress over this store — no chunk cache, no re-stream of
-    the inputs, and memory proportional to UNIQUE keys rather than all
-    records.  Exceeding the byte budget abandons the store (pass 3 then
-    re-streams), so worst-case memory matches the old path.
+    gather + compress over this store — no re-stream of the inputs, and
+    memory proportional to UNIQUE keys rather than all records.
+    Exceeding the byte budget abandons the store (pass 3 then
+    re-streams), so memory stays within the budget.
     """
 
     def __init__(self, num_files: int, budget_bytes: int):
@@ -524,7 +480,7 @@ class _RecordArenaStore:
         self.abandoned = False
 
     def add(self, chunks: Tuple[FastqChunk, ...], is_new: np.ndarray,
-            base: int, chunk_index: int = 0) -> None:
+            base: int) -> None:
         """Render the marked records of one chunk tuple (single render
         worker; parts may arrive out of position order under parallel
         range ingest — the write path orders them by base)."""
@@ -987,8 +943,8 @@ def _parallel_range_chunks(input_files: List[str], chunk_records: int,
     arrive in ARRIVAL order (positions interleave across ranges) —
     every consumer downstream is position-keyed: the accumulator takes
     per-key position minima (marking a record as first whenever it
-    lowers the minimum), the arena and chunk cache sort parts by base
-    position before pass 3, and part files are named by base.
+    lowers the minimum), the arena sorts its parts by base position in
+    pass 3, and part files are named by base.
     """
     import queue
     import threading
@@ -1082,64 +1038,52 @@ def _merge_output_parts(out: str, parts_dir: str) -> None:
 
 
 @trace.spanned("pass1.render")
-def _render_and_recycle(store, chunks, is_new, base, chunk_index,
-                        recycle_bin):
+def _render_and_recycle(store, chunks, is_new, base, recycle_bin):
     """Arena render of one chunk's new-key records + parse-buffer
     recycling (the single render worker — the last pipeline stage that
     touches chunk memory in arena mode)."""
-    store.add(chunks, is_new, base, chunk_index)
-    if recycle_bin is not None:
-        # The PREVIOUS chunk tuple is fully consumed by now; recycle its
-        # parse buffers so the next parser chunk reuses already-backed
-        # pages.  Deferred by one chunk because the current tuple was
-        # just rendered in this frame.
-        from .runtime import release
-        # pop() before release: iterating leaves both the list entry and
-        # the loop variable alive during the call, which trips the
-        # refcount gate for entries that are base arrays.
-        while recycle_bin:
-            release(recycle_bin.pop())
-        if chunks is not None:
-            for chunk in chunks:
-                if chunk.pool_bases is not None:
-                    recycle_bin.extend(chunk.pool_bases)
+    store.add(chunks, is_new, base)
+    # The PREVIOUS chunk tuple is fully consumed by now; recycle its parse
+    # buffers so the next parser chunk reuses already-backed pages.
+    # Deferred by one chunk because the current tuple was just rendered in
+    # this frame.
+    from .runtime import release
+    # pop() before release: iterating leaves both the list entry and the
+    # loop variable alive during the call, which trips the refcount gate
+    # for entries that are base arrays.
+    while recycle_bin:
+        release(recycle_bin.pop())
+    for chunk in chunks:
+        if chunk.pool_bases is not None:
+            recycle_bin.extend(chunk.pool_bases)
 
 
 def _filter_and_accumulate(accumulator, key_data, key_offsets, mask_future,
                            b, base, store=None, chunks=None,
-                           recycle_bin=None, chunk_index=0,
-                           render_pool=None, render_futures=None):
+                           recycle_bin=None, render_pool=None,
+                           render_futures=None):
     """Add one chunk's keys to the accumulator, gated on its quality mask.
 
     Runs on the single accumulate worker (serial inserts keep the C
     tables race-free); the quality reduction runs concurrently on its
-    own worker and is awaited here.  With a live record-arena ``store``,
-    new-key records render on the single render worker, overlapping the
-    next chunk's insert.  Returns (records_in, kept).
+    own worker and is awaited here.  With a record-arena ``store``,
+    new-key records render on the single render worker (``render_pool``),
+    overlapping the next chunk's insert.  Returns (records_in, kept).
     """
     counted = mask_future.result() if mask_future is not None else None
     with trace.span("pass1.accumulate"):
-        if store is not None:
+        is_new = None
+        if store is not None and not store.abandoned:
             is_new = accumulator.add_mark(key_data, key_offsets, counted,
-                                          base) \
-                if not store.abandoned else None
-            if render_pool is not None:
-                # Even after abandonment (is_new None -> add no-ops) the
-                # recycling stays on the render worker so exactly one stage
-                # ever owns a chunk's buffers.
-                render_futures.append(render_pool.submit(
-                    trace.carry(_render_and_recycle), store, chunks, is_new,
-                    base, chunk_index, recycle_bin))
-                if is_new is None:
-                    accumulator.add(key_data, key_offsets, counted, base)
-            elif is_new is not None:
-                _render_and_recycle(store, chunks, is_new, base, chunk_index,
-                                    recycle_bin)
-            else:
-                accumulator.add(key_data, key_offsets, counted, base)
-                _render_and_recycle(store, chunks, None, base, chunk_index,
-                                    recycle_bin)
-        else:
+                                          base)
+        if store is not None:
+            # Even after abandonment (is_new None -> add no-ops) the
+            # recycling stays on the render worker so exactly one stage
+            # ever owns a chunk's buffers.
+            render_futures.append(render_pool.submit(
+                trace.carry(_render_and_recycle), store, chunks, is_new,
+                base, recycle_bin))
+        if is_new is None:
             accumulator.add(key_data, key_offsets, counted, base)
         kept = int(counted.sum()) if counted is not None else b
         return b, kept
@@ -1222,365 +1166,291 @@ def deduplicate_cluster(
                     logger.exception("prewarm thread failed")
 
 
-def _deduplicate_cluster_impl(
-    input_files: List[str],
-    output_files: List[str],
-    check_slices: Optional[List[slice]],
-    max_distance: int,
-    max_average_error_rate: float,
-    cluster_dissection_func: ClusterDissectionFunc,
-    use_edit_distance: bool,
-    chunk_records: int,
-    prewarm: List,
-    prewarm_writer: List,
-    split_ingest: bool = True,
-) -> None:
-    from .runtime import device, tune_host_allocator
-    tune_host_allocator()
-    # Resolve the device before any work: a run configured for CUDA on a
-    # host without it fails here, not after pass 1.
-    device()
-    # Multi-host mode engages automatically when the process is part of an
-    # initialized torch.distributed job (same CLI invocation on every host):
-    # chunks stride across hosts in passes 1 and 3, bucket pair generation
-    # partitions by content ownership in pass 2, and the per-host results
-    # merge through padded all-gathers (parallel/distributed.py).  A
-    # user-supplied cluster_dissection_func must be deterministic — it runs
-    # identically on every host.
-    from .parallel.distributed import (
-        allgather_key_tables,
-        process_shape,
-        sum_scalars,
-    )
-    pid, nproc = process_shape()
-    if nproc > 1:
-        # Build the TCP mesh NOW, while every host is provably alive and
-        # inside the pipeline: lazy construction at the first exchange
-        # would block for the KV timeout if a peer died during pass 1.
-        from .parallel.transport import get_mesh
-        get_mesh()
-    # Sharded-input mode (FASTQDEDUP_SHARDED_INPUT=1): each host passes
-    # ITS OWN input/output shard on the command line (e.g. per-lane
-    # files); parsing and rewriting parallelize perfectly — no strided
-    # chunk skipping, no output merge — while the key tables, clustering,
-    # and dissection still agree globally.  The global record order is
-    # the concatenation of shards by process id, so first-wins picks the
-    # first occurrence in that concatenated order.
-    sharded_input = nproc > 1 and \
-        os.environ.get("FASTQDEDUP_SHARDED_INPUT") == "1"
-    shard_base = pid * _SHARD_STRIDE if sharded_input else 0
-    if len(input_files) != len(output_files):
-        raise ValueError(f"Amount of output files ({len(output_files)}) "
-                         f"must be equal to the amount of input files "
-                         f"({len(input_files)}). ")
-    if check_slices and len(input_files) != len(check_slices):
-        raise ValueError(f"Amount of check lengths ({len(check_slices)}) "
-                         f"must be equal to the amount of input files "
-                         f"({len(input_files)}). ")
+class _Pass1Plan(NamedTuple):
+    """Which readers read which records in pass 1 (:func:`_plan_pass1`)."""
+    # Concurrent readers' ``(per-file plan, base record)``, or None: one
+    # reader.
+    parallel_parts: Optional[List[Tuple[List[_RangeEntry], int]]]
+    # This host's record window of a multi-host byte-range plan, one
+    # counted entry per file: pass 1's one reader, pass 3's re-stream.
+    range_plan: Optional[List[Tuple[int, int, int]]]
+    range_base: int
+    # The parts are splits of one file: bits of a reader's local ordinal
+    # in its provisional record positions (:func:`_split_shift`).
+    split_shift: Optional[int]
 
-    filter_on_quality = max_average_error_rate < 1.0
-    timer = Timer()
-    total_records = 0
-    discarded_records = 0
-    total_kept = 0
 
-    # Pass-1 chunks are kept in RAM for the rewrite pass while they fit
-    # the budget — the reference's own peak RSS is 45-110% of the input
-    # (README.rst:35-38), so holding the parsed input is par; beyond the
-    # budget pass 3 re-streams from disk instead.  Default budget: half
-    # of physical RAM (floor 16 GiB) — re-parsing a 100M-read input costs
-    # minutes, spare RAM costs nothing.
-    memory_budget = int(os.environ.get("FASTQDEDUP_MEMORY_LIMIT", 0)) or \
-        max(16 * 1024 ** 3, _total_ram_bytes() // 2)
-    cached_chunks: Optional[List[Tuple[int, Tuple[FastqChunk, ...]]]] = []
-    cached_bytes = 0
+def _plan_pass1(input_files: List[str], pid: int, nproc: int,
+                sharded_input: bool, split_ingest: bool) -> _Pass1Plan:
+    """The pass-1 plan of this host.
 
-    # ---------------- Pass 1: ingest, filter, count unique keys ----------
-    # Key accumulation (C hash table; GIL-free) runs on a worker thread,
-    # overlapping with the parse thread and the quality filter.
-    from concurrent.futures import ThreadPoolExecutor
+    * Several hosts reading one input: byte-range ingest — each host
+      inflates and parses only its record window (exact global ordinals
+      from a newline-count exchange, :func:`_plan_input_ranges`), in up to
+      one part a reader; strided chunk ownership (parse everything, keep
+      1/P) for input that is not BGZF.
+    * One host, or sharded input, with several readers: one BGZF file
+      splits at member boundaries, inflating nothing
+      (:func:`_plan_split_ranges`); several files zip record by record, so
+      each reader needs the same record range in every file, which only
+      the newline count gives (:func:`_plan_local_ranges`).
+    * Otherwise one serial reader.
 
-    with trace.span("pass1"):
-        accumulator = _make_key_accumulator()
-        # Default multi-host mode: byte-range BGZF splitting — each host
-        # inflates and parses only its 1/P record range (exact global record
-        # ordinals from a newline-count exchange).  Falls back to strided
-        # chunk ownership (parse everything, keep 1/P) for non-BGZF inputs.
-        range_plan = None
-        range_base = 0
-        # Parallel range ingest (within one host): the native parser's record
-        # scan is single-threaded per reader, so once inflate overlaps, the
-        # scan bounds pass-1 throughput.  Splitting this host's record window
-        # into concurrent BGZF range readers multiplies scan throughput by
-        # the reader count.  Chunks then arrive out of position order; every
-        # consumer is position-keyed (see _parallel_range_chunks).
-        parallel_parts = None
-        split_counts: Optional[np.ndarray] = None  # records of each split
-        split_shift = 0
-        if os.environ.get("FASTQDEDUP_PARALLEL_INGEST", "1") != "0":
-            try:
-                _cpus = len(os.sched_getaffinity(0))  # respects core pinning
-            except (AttributeError, OSError):  # pragma: no cover - non-Linux
-                _cpus = os.cpu_count() or 2
-            # Measured at 100M reads on a 4-core host: 3 readers beat 2
-            # (143 vs 165 s end to end) and, once rendering/inserts moved
-            # off the critical path, 4 beat 3 in interleaved reps (165 vs
-            # 177, 144 vs 253) — the scan threads tolerate sharing cores
-            # with the inflate/accumulate workers better than they tolerate
-            # idling.
-            n_readers = int(os.environ.get("FASTQDEDUP_INGEST_READERS", "0")) \
-                or max(1, min(4, _cpus))
-        else:
-            n_readers = 1
-        if nproc > 1 and not sharded_input \
-                and os.environ.get("FASTQDEDUP_RANGE_INPUT", "1") != "0":
-            with trace.span("pass1.plan"):
-                planned = _plan_input_ranges(input_files, pid, nproc,
-                                             n_parts=n_readers)
-                if planned:
-                    trace.count("pass1.parts.counted", len(planned))
+    The native parser's record scan is single-threaded per reader, so
+    concurrent readers multiply scan throughput.  Chunks then arrive out
+    of position order; every consumer is position-keyed (see
+    :func:`_parallel_range_chunks`).
+    """
+    try:
+        cpus = len(os.sched_getaffinity(0))  # respects core pinning
+    except (AttributeError, OSError):  # pragma: no cover - non-Linux
+        cpus = os.cpu_count() or 2
+    # Measured at 100M reads on a 4-core host: 3 readers beat 2 (143 vs
+    # 165 s end to end) and, once rendering/inserts moved off the critical
+    # path, 4 beat 3 in interleaved reps (165 vs 177, 144 vs 253) — the
+    # scan threads tolerate sharing cores with the inflate/accumulate
+    # workers better than they tolerate idling.
+    n_readers = int(os.environ.get("FASTQDEDUP_INGEST_READERS", "0")) \
+        or max(1, min(4, cpus))
+    serial = _Pass1Plan(None, None, 0, None)
+    if nproc > 1 and not sharded_input:
+        with trace.span("pass1.plan"):
+            planned = _plan_input_ranges(input_files, pid, nproc,
+                                         n_parts=n_readers)
             if planned:
-                if len(planned) > 1:
-                    parallel_parts = planned
-                    # Pass 3's re-stream layout reads serially; give it the
-                    # whole host window (parts are contiguous, so part 0's
-                    # start/skip plus the summed record budget IS the
-                    # window).  Pass 1 ignores range_plan while
-                    # parallel_parts is set.
-                    _total = sum(p[0][0][2] for p in planned)
-                    range_plan = [(start, skip, _total)
-                                  for (start, skip, _n) in planned[0][0]]
-                    range_base = planned[0][1]
-                else:
-                    range_plan, range_base = planned[0]
-                logger.debug(
-                    "byte-range ingest: host %d/%d parses records "
-                    "[%d, %d) per file across %d reader(s)", pid, nproc,
-                    planned[0][1],
-                    planned[-1][1] + planned[-1][0][0][2], len(planned))
-        elif (nproc == 1 or sharded_input) and n_readers > 1:
-            with trace.span("pass1.plan"):
-                if len(input_files) > 1:
-                    # Several files zip record by record: each reader needs
-                    # the same record range in every file, which only the
-                    # newline count gives.
-                    parallel_parts = _plan_local_ranges(input_files,
-                                                        n_readers)
-                    if parallel_parts is not None:
-                        trace.count("pass1.parts.counted",
-                                    len(parallel_parts))
-                elif split_ingest:
-                    # One file: split at member boundaries, no inflate.
-                    # Reader p's records take provisional positions from
-                    # p << split_shift on, in file order; pass 1 maps them
-                    # to exact ordinals once every reader has counted.
-                    splits = _plan_split_ranges(input_files[0], n_readers)
-                    if splits is not None:
-                        split_shift = _split_shift(len(splits))
-                        split_counts = np.zeros(len(splits), dtype=np.int64)
-                        parallel_parts = [([part], p << split_shift)
-                                          for p, part in enumerate(splits)]
-                        trace.count("pass1.parts.split", len(splits))
-            if parallel_parts is not None:
-                logger.debug("parallel ingest: %d range readers",
-                             len(parallel_parts))
-        # Record-arena mode (single host, native accumulator): render each
-        # new key's first record during pass 1 and skip both the chunk cache
-        # and pass 3's re-stream entirely.  Memory: O(unique keys) rendered
-        # bytes instead of O(records) cached chunks.
-        record_store: Optional[_RecordArenaStore] = None
-        recycle_bin: Optional[List[np.ndarray]] = None
-        if hasattr(accumulator, "add_mark") \
-                and os.environ.get("FASTQDEDUP_RECORD_ARENA", "1") != "0":
-            # Multi-host included: each host's arena holds ITS chunks' local
-            # first occurrences; every kept key's GLOBAL first position lives
-            # in exactly one host's arena (positions partition across hosts).
-            record_store = _RecordArenaStore(len(input_files), memory_budget)
-            cached_chunks = None
-            recycle_bin = []
-        accumulate_pool = ThreadPoolExecutor(max_workers=1)
-        quality_pool = ThreadPoolExecutor(max_workers=1) \
-            if filter_on_quality else None
-        # Arena renders overlap the next chunk's C inserts on their own
-        # worker; both are single-threaded FIFO so part order and recycle
-        # order stay serial.
-        render_pool = ThreadPoolExecutor(max_workers=1) \
-            if record_store is not None else None
-        render_futures: List = []
-        accumulate_futures = []
-        global_base = 0
-        prewarm_started = False
-        # Pass 3 writes through the card writer (a distributed job's part
-        # files are compressed on the host).
-        card_writer = not (nproc > 1 and not sharded_input) and any(
-            deflates_on_card(f) for f in output_files)
-        if parallel_parts is not None:
-            _chunk_iter: Iterator = iter(_parallel_range_chunks(
-                input_files, chunk_records, parallel_parts))
-        else:
-            _chunk_iter = iter(_zip_chunks(input_files, chunk_records,
-                                           range_plan=range_plan))
-        chunk_index = -1
-        try:
-            while True:
-                with trace.span("pass1.read"):
-                    try:
-                        item = next(_chunk_iter, None)
-                    except FastqFormatError as exc:
-                        if split_counts is None:
-                            raise
-                        raise _SplitIngestFailed(str(exc)) from exc
-                if item is None:
-                    break
-                chunk_index += 1
-                if parallel_parts is not None:
-                    part_base, chunks = item
-                    base = shard_base + part_base
-                    global_base += chunks[0].count
-                    if split_counts is not None:
-                        split_counts[part_base >> split_shift] += \
-                            chunks[0].count
-                else:
-                    chunks = item
-                    base = shard_base + range_base + global_base
-                    global_base += chunks[0].count
-                    if range_plan is None and not sharded_input \
-                            and chunk_index % nproc != pid:
-                        continue  # another host owns this chunk (strided mode)
-                if len(chunks) > 1:
-                    _validate_mates(chunks)
-                if cached_chunks is not None:
-                    cached_bytes += sum(
-                        len(c.sequences) + len(c.qualities) + len(c.headers)
-                        + c.offsets.nbytes + c.header_offsets.nbytes
-                        for c in chunks)
-                    if cached_bytes > memory_budget:
-                        cached_chunks = None
-                    elif cached_bytes > (2 << 30) and _fault_cost_too_high():
-                        # Holding the cache means creating fresh anon pages
-                        # for every chunk; on hosts with lazily-backed guest
-                        # memory page creation measures 2-10 s/GiB (and
-                        # grows with RSS) while re-streaming the page-cached
-                        # input costs well under 1 s/GiB of payload.
-                        # Measured here: dropping a 21 GiB cache turned a
-                        # 259 s 100M-read run into 197 s.
-                        logger.debug(
-                            "dropping chunk cache: measured page-fault cost "
-                            "%.1f s/GiB makes re-streaming cheaper",
-                            _observed_fault_cost_cached())
-                        cached_chunks = None
-                    else:
-                        # Compact before caching: the parser's chunks are
-                        # views into fixed-capacity buffers sized by a
-                        # per-record byte estimate; holding the views would
-                        # pin several times the actual payload.
-                        cached_chunks.append((base, tuple(
-                            _compact_chunk(c) for c in chunks)))
-                with trace.span("pass1.keys"):
-                    key_data, key_offsets, qual_data, qual_offsets = \
-                        _chunk_keys(chunks, check_slices,
-                                    use_qualities=filter_on_quality)
-                if not prewarm_started and global_base >= 100_000:
-                    # Bring the card up while pass 1 is still parsing: the
-                    # CUDA context, the kernel library and each kernel's
-                    # first launch (warmup.py).  None on the CPU device.
-                    # Small inputs never reach the device (the engine's host
-                    # path covers them), so they skip this.  The card
-                    # writer's deflate launch has a thread of its own,
-                    # joined before pass 3, where an output takes it.
-                    prewarm_started = True
-                    from .warmup import prewarm_async, prewarm_deflate_async
-                    thread = prewarm_async(
-                        int(key_offsets[1] - key_offsets[0]),
-                        max_distance=max_distance,
-                        use_edit_distance=use_edit_distance) \
-                        if max_distance > 0 else None
-                    if thread is not None:
-                        prewarm.append(thread)
-                    thread = prewarm_deflate_async() if card_writer \
-                        else None
-                    if thread is not None:
-                        prewarm_writer.append(thread)
-                b = chunks[0].count
-                total_records += b
-                trace.count("records.read", b)
-                mask_future = quality_pool.submit(
-                    trace.carry(_quality_mask), qual_data, qual_offsets,
-                    max_average_error_rate) \
-                    if quality_pool is not None else None
-                accumulate_futures.append(accumulate_pool.submit(
-                    trace.carry(_filter_and_accumulate), accumulator, key_data,
-                    key_offsets, mask_future, b, base, record_store, chunks,
-                    recycle_bin, chunk_index, render_pool, render_futures))
+                trace.count("pass1.parts.counted", len(planned))
+        if not planned:
+            return serial
+        logger.debug("byte-range ingest: host %d/%d parses records "
+                     "[%d, %d) per file across %d reader(s)", pid, nproc,
+                     planned[0][1], planned[-1][1] + planned[-1][0][0][2],
+                     len(planned))
+        if len(planned) == 1:
+            return _Pass1Plan(None, planned[0][0], planned[0][1], None)
+        # Pass 3's re-stream reads serially; give it the whole host window
+        # (parts are contiguous, so part 0's start/skip plus the summed
+        # record budget IS the window).
+        total = sum(per_file[0][2] for per_file, _ in planned)
+        return _Pass1Plan(planned, [(start, skip, total) for start, skip, _
+                                    in planned[0][0]], planned[0][1], None)
+    if n_readers < 2:
+        return serial
+    parts = shift = None
+    with trace.span("pass1.plan"):
+        if len(input_files) > 1:
+            parts = _plan_local_ranges(input_files, n_readers)
+            if parts is not None:
+                trace.count("pass1.parts.counted", len(parts))
+        elif split_ingest:
+            # Reader p's records take provisional positions from
+            # p << shift on, in file order; pass 1 maps them to exact
+            # ordinals once every reader has counted.
+            splits = _plan_split_ranges(input_files[0], n_readers)
+            if splits is not None:
+                shift = _split_shift(len(splits))
+                parts = [([split], p << shift)
+                         for p, split in enumerate(splits)]
+                trace.count("pass1.parts.split", len(splits))
+    if parts is None:
+        return serial
+    logger.debug("parallel ingest: %d range readers", len(parts))
+    return _Pass1Plan(parts, None, 0, shift)
 
-            with trace.span("pass1.drain"):
-                for future in accumulate_futures:
-                    # Raises what the accumulation raised.
-                    b, kept = future.result()
-                    total_kept += kept
-                    discarded_records += b - kept
-                for future in render_futures:
-                    future.result()  # propagate any arena render error
-                accumulate_pool.shutdown()
-                if render_pool is not None:
-                    render_pool.shutdown()
-                if quality_pool is not None:
-                    quality_pool.shutdown()
-            trace.count("records.filtered", discarded_records)
-        finally:
-            # An exception anywhere in pass 1 (parse error, mate
-            # desync, quality range error re-raised from a worker)
-            # must not leak the worker pools' threads.
-            accumulate_pool.shutdown(wait=False, cancel_futures=True)
+
+def _start_prewarm(key_length: int, max_distance: int,
+                   use_edit_distance: bool, card_writer: bool,
+                   prewarm: List, prewarm_writer: List) -> None:
+    """Bring the card up while pass 1 is still parsing: the CUDA context,
+    the kernel library and each kernel's first launch (warmup.py).  None
+    on the CPU device.  The card writer's deflate launch has a thread of
+    its own, joined before pass 3, where an output takes it."""
+    from .warmup import prewarm_async, prewarm_deflate_async
+    thread = prewarm_async(key_length, max_distance=max_distance,
+                           use_edit_distance=use_edit_distance) \
+        if max_distance > 0 else None
+    if thread is not None:
+        prewarm.append(thread)
+    thread = prewarm_deflate_async() if card_writer else None
+    if thread is not None:
+        prewarm_writer.append(thread)
+
+
+def _join_warmup(threads: List) -> None:
+    """Wait for warm-up threads; raises what a thread's work raised."""
+    if threads:
+        with trace.span("warmup.join"):
+            while threads:
+                threads.pop().join()
+
+
+class _Pass1(NamedTuple):
+    """What pass 1 leaves for passes 2 and 3 (:func:`_read_pass1`)."""
+    accumulator: object
+    record_store: Optional[_RecordArenaStore]  # None: pass 3 re-streams
+    records: int
+    kept: int
+    discarded: int
+    # Provisional split positions -> exact ordinals (None: no splits).
+    split_offsets: Optional[np.ndarray]
+
+
+def _read_pass1(input_files: List[str], check_slices: Optional[List[slice]],
+                chunk_records: int, max_average_error_rate: float,
+                plan: _Pass1Plan, pid: int, nproc: int, shard_base: int,
+                sharded_input: bool, warm_up: Callable[[int], None]
+                ) -> _Pass1:
+    """Pass 1: ingest, quality-filter and count unique keys.
+
+    Key accumulation (C hash table; GIL-free) runs on a worker thread,
+    overlapping with the parse thread and the quality filter.
+    ``warm_up(key_length)`` is called once, when 100,000 records are in:
+    small inputs never reach the device (the engine's host path covers
+    them)."""
+    from concurrent.futures import ThreadPoolExecutor
+    filter_on_quality = max_average_error_rate < 1.0
+    accumulator = _make_key_accumulator()
+    # Record arena (the native accumulator, which marks each key's first
+    # insert): render each new key's first record during pass 1, so pass 3
+    # never re-reads the inputs — O(unique keys) rendered bytes.  Over its
+    # budget (default: half of physical RAM, floor 16 GiB) it is dropped
+    # and pass 3 re-streams.  Multi-host included: each host's arena holds
+    # ITS chunks' local first occurrences; every kept key's GLOBAL first
+    # position lives in exactly one host's arena.
+    record_store: Optional[_RecordArenaStore] = None
+    recycle_bin: Optional[List[np.ndarray]] = None
+    if hasattr(accumulator, "add_mark"):
+        record_store = _RecordArenaStore(
+            len(input_files),
+            int(os.environ.get("FASTQDEDUP_MEMORY_LIMIT", 0))
+            or max(16 * 1024 ** 3, _total_ram_bytes() // 2))
+        recycle_bin = []
+    split_counts = None if plan.split_shift is None else \
+        np.zeros(len(plan.parallel_parts), dtype=np.int64)
+    accumulate_pool = ThreadPoolExecutor(max_workers=1)
+    quality_pool = ThreadPoolExecutor(max_workers=1) \
+        if filter_on_quality else None
+    # Arena renders overlap the next chunk's C inserts on their own
+    # worker; both are single-threaded FIFO so part order and recycle
+    # order stay serial.
+    render_pool = ThreadPoolExecutor(max_workers=1) \
+        if record_store is not None else None
+    render_futures: List = []
+    accumulate_futures = []
+    total_records = total_kept = discarded_records = 0
+    global_base = 0
+    if plan.parallel_parts is not None:
+        chunk_iter: Iterator = iter(_parallel_range_chunks(
+            input_files, chunk_records, plan.parallel_parts))
+    else:
+        chunk_iter = iter(_zip_chunks(input_files, chunk_records,
+                                      range_plan=plan.range_plan))
+    chunk_index = -1
+    try:
+        while True:
+            with trace.span("pass1.read"):
+                try:
+                    item = next(chunk_iter, None)
+                except FastqFormatError as exc:
+                    if split_counts is None:
+                        raise
+                    raise _SplitIngestFailed(str(exc)) from exc
+            if item is None:
+                break
+            chunk_index += 1
+            if plan.parallel_parts is not None:
+                part_base, chunks = item
+                base = shard_base + part_base
+                if split_counts is not None:
+                    split_counts[part_base >> plan.split_shift] += \
+                        chunks[0].count
+            else:
+                chunks = item
+                base = shard_base + plan.range_base + global_base
+            global_base += chunks[0].count
+            if plan.parallel_parts is None and plan.range_plan is None \
+                    and not sharded_input and chunk_index % nproc != pid:
+                continue  # another host owns this chunk (strided mode)
+            if len(chunks) > 1:
+                _validate_mates(chunks)
+            with trace.span("pass1.keys"):
+                key_data, key_offsets, qual_data, qual_offsets = \
+                    _chunk_keys(chunks, check_slices,
+                                use_qualities=filter_on_quality)
+            if warm_up is not None and global_base >= 100_000:
+                warm_up(int(key_offsets[1] - key_offsets[0]))
+                warm_up = None
+            b = chunks[0].count
+            total_records += b
+            trace.count("records.read", b)
+            mask_future = quality_pool.submit(
+                trace.carry(_quality_mask), qual_data, qual_offsets,
+                max_average_error_rate) \
+                if quality_pool is not None else None
+            accumulate_futures.append(accumulate_pool.submit(
+                trace.carry(_filter_and_accumulate), accumulator, key_data,
+                key_offsets, mask_future, b, base, record_store, chunks,
+                recycle_bin, render_pool, render_futures))
+
+        with trace.span("pass1.drain"):
+            for future in accumulate_futures:
+                # Raises what the accumulation raised.
+                b, kept = future.result()
+                total_kept += kept
+                discarded_records += b - kept
+            for future in render_futures:
+                future.result()  # propagate any arena render error
+            accumulate_pool.shutdown()
             if render_pool is not None:
-                render_pool.shutdown(wait=False, cancel_futures=True)
+                render_pool.shutdown()
             if quality_pool is not None:
-                quality_pool.shutdown(wait=False, cancel_futures=True)
-        if recycle_bin:
-            # Drop this frame's references to the final chunk tuple (the loop
-            # variables outlive the loop) so its parse buffers recycle too.
-            key_data = key_offsets = qual_data = qual_offsets = None
-            mask_future = None
-            item = chunks = None  # FastqChunk views pin the parse buffers
-            from .runtime import release
-            # pop() before release: iterating leaves both the list entry and
-            # the loop variable alive during the call, which trips the
-            # refcount gate for entries that are base arrays.
-            while recycle_bin:
-                release(recycle_bin.pop())
-        split_offsets: Optional[np.ndarray] = None
-        if split_counts is not None:
-            # Every reader has counted: provisional positions -> exact
-            # ordinals, here for the arena and the chunk cache, in pass 2
-            # for the key table's first positions.
-            split_offsets = _split_offsets(split_counts, split_shift)
-            if record_store is not None and not record_store.abandoned:
-                record_store.rebase(split_offsets, split_shift, shard_base)
-            if cached_chunks:
-                cached_chunks = [
-                    (base + int(split_offsets[(base - shard_base)
-                                              >> split_shift]), chunks)
-                    for base, chunks in cached_chunks]
-        if parallel_parts is not None and cached_chunks:
-            # Range readers interleave arbitrarily; pass 3 walks the cache in
-            # file order.
-            cached_chunks.sort(key=lambda entry: entry[0])
+                quality_pool.shutdown()
+        trace.count("records.filtered", discarded_records)
+    finally:
+        # An exception anywhere in pass 1 (parse error, mate desync,
+        # quality range error re-raised from a worker) must not leak the
+        # worker pools' threads.
+        accumulate_pool.shutdown(wait=False, cancel_futures=True)
+        if render_pool is not None:
+            render_pool.shutdown(wait=False, cancel_futures=True)
+        if quality_pool is not None:
+            quality_pool.shutdown(wait=False, cancel_futures=True)
+    if recycle_bin:
+        # Drop this frame's references to the final chunk tuple (the loop
+        # variables outlive the loop) so its parse buffers recycle too.
+        key_data = key_offsets = qual_data = qual_offsets = None
+        mask_future = None
+        item = chunks = None  # FastqChunk views pin the parse buffers
+        from .runtime import release
+        # pop() before release: iterating leaves both the list entry and
+        # the loop variable alive during the call, which trips the
+        # refcount gate for entries that are base arrays.
+        while recycle_bin:
+            release(recycle_bin.pop())
+    split_offsets: Optional[np.ndarray] = None
+    if split_counts is not None:
+        # Every reader has counted: provisional positions -> exact
+        # ordinals, here for the arena, in pass 2 for the key table's
+        # first positions.
+        split_offsets = _split_offsets(split_counts, plan.split_shift)
+        if record_store is not None and not record_store.abandoned:
+            record_store.rebase(split_offsets, plan.split_shift, shard_base)
+    return _Pass1(accumulator, record_store, total_records, total_kept,
+                  discarded_records, split_offsets)
 
-    if nproc > 1:
-        total_records, total_kept, discarded_records = sum_scalars(
-            total_records, total_kept, discarded_records)
-    if filter_on_quality:
-        logger.info(
-            f"{discarded_records} records out of {total_records} "
-            f"records had an error rate higher than {max_average_error_rate} "
-            f"and were discarded.")
-    logger.info(f"Processed {total_kept} sequences. "
-                f"({timer.get_difference()})")
 
-    # ---------------- Pass 2: cluster and dissect ------------------------
-    # In multi-host runs each host contributes its partial key table; one
-    # padded all-gather merges them and the finalize step collapses keys
-    # seen by several hosts (summing counts, min-ing first positions).
+def _finalize_key_tables(accumulator, split_offsets: Optional[np.ndarray],
+                         split_shift: Optional[int], shard_base: int,
+                         nproc: int
+                         ) -> Tuple[KeyGroups, Optional[np.ndarray]]:
+    """Pass 2's key tables: the accumulator's export as
+    :class:`KeyGroups`, and the bitmap of byte values in the keys (None
+    where the accumulator does not collect it).
+
+    In multi-host runs each host contributes its partial key table; one
+    exchange merges them and the finalize step collapses keys seen by
+    several hosts (summing counts, min-ing first positions)."""
+    from .parallel.distributed import allgather_key_tables
+    from .runtime import release
     with trace.span("pass2.finalize"):
         collapsed = getattr(accumulator, "collapsed", False)
         byte_presence: Optional[np.ndarray] = None
@@ -1614,9 +1484,8 @@ def _deduplicate_cluster_impl(
             # The local export is fully represented in the merged table now;
             # recycle its pooled buffers (refcount-gated no-ops if the
             # accumulator still references them).
-            from .runtime import release as _release
             for _buf in (kd, ko, kc, kp, h1, h2):
-                _release(_buf)
+                release(_buf)
             del kd, ko, kc, kp, h1, h2, _buf
             groups = _finalize_groups(kd2, ko2, kc2, kp2, pre_merged=True)
             # The uniform-length fast path aliases the merged columns into
@@ -1635,9 +1504,8 @@ def _deduplicate_cluster_impl(
             # for aliased ones — those recycle at groups.dispose()).  The
             # offsets column in particular is never aliased, and without
             # this it re-faulted 240 MiB per run at 100M reads.
-            from .runtime import release as _release
             for _buf in (kd, ko, kc, kp):
-                _release(_buf)
+                release(_buf)
             del kd, ko, kc, kp, _buf
         accumulator.close()
     if logger.isEnabledFor(logging.DEBUG):
@@ -1652,327 +1520,134 @@ def _deduplicate_cluster_impl(
                          f"{nbytes / (1024 ** 3):.3f} GiB")
         logger.debug(f"Key tables total: {groups.n} unique keys, "
                      f"{total_bytes / (1024 ** 3):.3f} GiB")
-    if prewarm:
-        with trace.span("warmup.join"):
-            while prewarm:
-                prewarm.pop().join()  # raises what the thread's work raised
+    return groups, byte_presence
+
+
+def _deduplicate_cluster_impl(
+    input_files: List[str],
+    output_files: List[str],
+    check_slices: Optional[List[slice]],
+    max_distance: int,
+    max_average_error_rate: float,
+    cluster_dissection_func: ClusterDissectionFunc,
+    use_edit_distance: bool,
+    chunk_records: int,
+    prewarm: List,
+    prewarm_writer: List,
+    split_ingest: bool = True,
+) -> None:
+    from .parallel.distributed import (
+        allgather_int64,
+        process_shape,
+        sum_scalars,
+    )
+    from .runtime import device, tune_host_allocator
+    tune_host_allocator()
+    # Resolve the device before any work: a run configured for CUDA on a
+    # host without it fails here, not after pass 1.
+    device()
+    # Multi-host mode engages automatically when the process is part of an
+    # initialized torch.distributed job (same CLI invocation on every host):
+    # each host reads its share of the records in passes 1 and 3, pair
+    # generation and dissection shard across hosts in pass 2, and the
+    # per-host results merge through all-gathers (parallel/distributed.py).
+    # A user-supplied cluster_dissection_func must be deterministic — it
+    # runs identically on every host.
+    pid, nproc = process_shape()
+    if nproc > 1:
+        # Build the TCP mesh NOW, while every host is provably alive and
+        # inside the pipeline: lazy construction at the first exchange
+        # would block for the KV timeout if a peer died during pass 1.
+        from .parallel.transport import get_mesh
+        get_mesh()
+    # Sharded-input mode (FASTQDEDUP_SHARDED_INPUT=1): each host passes
+    # ITS OWN input/output shard on the command line (e.g. per-lane
+    # files); parsing and rewriting parallelize perfectly — no strided
+    # chunk skipping, no output merge — while the key tables, clustering,
+    # and dissection still agree globally.  The global record order is
+    # the concatenation of shards by process id, so first-wins picks the
+    # first occurrence in that concatenated order.
+    sharded_input = nproc > 1 and \
+        os.environ.get("FASTQDEDUP_SHARDED_INPUT") == "1"
+    shard_base = pid * _SHARD_STRIDE if sharded_input else 0
+    if len(input_files) != len(output_files):
+        raise ValueError(f"Amount of output files ({len(output_files)}) "
+                         f"must be equal to the amount of input files "
+                         f"({len(input_files)}). ")
+    if check_slices and len(input_files) != len(check_slices):
+        raise ValueError(f"Amount of check lengths ({len(check_slices)}) "
+                         f"must be equal to the amount of input files "
+                         f"({len(input_files)}). ")
+    timer = Timer()
+    # Pass 3 writes through the card writer (a distributed job's part
+    # files are compressed on the host).
+    card_writer = not (nproc > 1 and not sharded_input) and any(
+        deflates_on_card(f) for f in output_files)
+
+    # ---------------- Pass 1: ingest, filter, count unique keys ----------
+    with trace.span("pass1"):
+        plan = _plan_pass1(input_files, pid, nproc, sharded_input,
+                           split_ingest)
+        ingest = _read_pass1(
+            input_files, check_slices, chunk_records, max_average_error_rate,
+            plan, pid, nproc, shard_base, sharded_input, functools.partial(
+                _start_prewarm, max_distance=max_distance,
+                use_edit_distance=use_edit_distance, card_writer=card_writer,
+                prewarm=prewarm, prewarm_writer=prewarm_writer))
+    records, kept, discarded = ingest.records, ingest.kept, ingest.discarded
+    if nproc > 1:
+        records, kept, discarded = sum_scalars(records, kept, discarded)
+    if max_average_error_rate < 1.0:
+        logger.info(
+            f"{discarded} records out of {records} records had an error "
+            f"rate higher than {max_average_error_rate} and were discarded.")
+    logger.info(f"Processed {kept} sequences. ({timer.get_difference()})")
+
+    # ---------------- Pass 2: cluster and dissect ------------------------
+    groups, byte_presence = _finalize_key_tables(
+        ingest.accumulator, ingest.split_offsets, plan.split_shift,
+        shard_base, nproc)
+    _join_warmup(prewarm)
     part = build_partition_groups(groups, max_distance, use_edit_distance,
                                   shard=(pid, nproc),
                                   byte_presence=byte_presence)
-    with trace.span("pass2.dissect"):
-        counts_arr = groups.counts_concat()
-        sizes = part.sizes()
-        method_name = _method_name_for(cluster_dissection_func)
-        number_of_clusters = part.num_clusters
-
-        # Kept keys as per-group boolean masks over the sorted unique
-        # arrays (clusters are disjoint, so each key is decided exactly
-        # once); pass 3 claims first occurrences against these masks — no
-        # Python bytes.
-        kept_mask = [np.zeros(len(c), dtype=bool) for c in groups.counts]
-        # Single length group (the common case): key index == row index,
-        # so the ~n-sized searchsorted map and per-call np.unique grouping
-        # are skipped entirely — they are replicated on every host at P>1.
-        single_group = len(groups.lengths) == 1
-        group_of_key = None if single_group else np.searchsorted(
-            groups.starts, np.arange(groups.n, dtype=np.int64),
-            side="right") - 1
-
-        def member_bytes(members: np.ndarray) -> np.ndarray:
-            """Raw key bytes of ``members`` as a zero-padded uint8 matrix
-            — zero-padding makes row-wise lexicographic comparison match
-            Python str order across mixed lengths (shorter prefix sorts
-            first)."""
-            if single_group:
-                length = groups.lengths[0]
-                if not length:
-                    return np.zeros((len(members), 1), dtype=np.uint8)
-                return groups.voids[0][members].view(np.uint8).reshape(
-                    len(members), length)
-            g = group_of_key[members]
-            rows = members - groups.starts[g]
-            width = max(max((groups.lengths[int(gi)]
-                             for gi in np.unique(g)), default=1), 1)
-            padded = np.zeros((len(members), width), dtype=np.uint8)
-            for gi in np.unique(g):
-                length = groups.lengths[int(gi)]
-                sel = np.flatnonzero(g == gi)
-                if length:
-                    raw = groups.voids[int(gi)][rows[sel]].view(np.uint8)
-                    padded[sel, :length] = raw.reshape(len(sel), length)
-            return padded
-
-        def mark_indices(idx: np.ndarray) -> None:
-            if single_group:
-                kept_mask[0][idx] = True
-                return
-            g = group_of_key[idx]
-            rows = idx - groups.starts[g]
-            for gi in np.unique(g):
-                kept_mask[gi][rows[g == gi]] = True
-
-        key_row_maps: Dict[int, Dict[bytes, int]] = {}
-
-        def mark_key_bytes(key: bytes) -> None:
-            # A user-supplied dissection strategy may yield a string that
-            # is not one of the cluster's keys; the reference tolerated
-            # that (unknown hashes simply never matched in pass 3,
-            # __init__.py:203-206), so unknown keys are skipped, not
-            # marked.  Lookup goes through a lazily built per-group dict
-            # (group order may be hash-based, so binary search does not
-            # apply); this path serves only custom dissection strategies.
-            g = groups.group_index_of_length(len(key))
-            if g is None:
-                logger.debug("dissection yielded unknown key of length "
-                             f"{len(key)}; ignored")
-                return
-            if len(key) == 0:
-                if len(kept_mask[g]):
-                    kept_mask[g][0] = True
-                return
-            rows_map = key_row_maps.get(g)
-            if rows_map is None:
-                raw = groups.voids[g].tobytes()
-                length = groups.lengths[g]
-                rows_map = {raw[i * length:(i + 1) * length]: i
-                            for i in range(len(groups.counts[g]))}
-                key_row_maps[g] = rows_map
-            row = rows_map.get(key)
-            if row is None:
-                logger.debug("dissection yielded unknown key; ignored")
-                return
-            kept_mask[g][row] = True
-
-        with trace.span("dissect.singletons"):
-            # Singleton components (the bulk): kept wholesale, no
-            # dissection.
-            if single_group and len(part.cluster_of) == groups.n:
-                # Vectorized: key row i is a singleton iff its cluster has
-                # one member — a sequential gather+compare instead of a
-                # ~n-sized random scatter (this mark is inherently global
-                # on every host).
-                np.logical_or(kept_mask[0], sizes[part.cluster_of] == 1,
-                              out=kept_mask[0])
-            else:
-                mark_indices(part.order[part.starts[sizes == 1]])
-
-        # Built-in methods at P>1: per-cluster dissection work (two-member
-        # closed form AND the big-cluster paths below) shards across hosts
-        # by cluster index; the kept key indices merge through ONE combined
-        # all-gather at the end.  A user-supplied strategy instead runs
-        # identically on every host (determinism is its documented
-        # contract).
-        distribute = nproc > 1 and method_name is not None
-        kept_local: List[np.ndarray] = []
-
-        if method_name is not None:
-            with trace.span("dissect.two_member"):
-                # Two-member components, closed form: connectivity implies
-                # the single within-distance edge exists, so
-                # adjacency/highest_count keep only the max (count, key);
-                # directional also keeps the minor read unless the count
-                # gate 2*c - 1 <= count(origin) absorbs it (reference
-                # __init__.py:84,99-101).  Count ties break on key bytes
-                # (== latin-1 string order), fetched only when needed.
-                pair_starts = part.starts[sizes == 2]
-                if distribute:
-                    pair_starts = pair_starts[pid::nproc]
-                a_idx = part.order[pair_starts]
-                b_idx = part.order[pair_starts + 1]
-                ca = counts_arr[a_idx]
-                cb = counts_arr[b_idx]
-                hi_idx = np.where(ca > cb, a_idx, b_idx)
-                lo_idx = np.where(ca > cb, b_idx, a_idx)
-                ties = np.flatnonzero(ca == cb)
-                if len(ties):
-                    # Count ties are the COMMON case (two count-1
-                    # variants), so the string tie-break is vectorized:
-                    # first differing byte decides (keys are distinct, so
-                    # one always exists — for a strict-prefix pair, edit
-                    # mode only, the zero pad loses to any real byte,
-                    # matching Python str order).  One combined call so
-                    # both sides share the same pad width (edit-mode pairs
-                    # can mix lengths).
-                    both = member_bytes(np.concatenate([a_idx[ties],
-                                                        b_idx[ties]]))
-                    av = both[:len(ties)]
-                    bv = both[len(ties):]
-                    neq = av != bv
-                    first = np.argmax(neq, axis=1)
-                    sel = np.arange(len(ties))
-                    a_wins = av[sel, first] > bv[sel, first]
-                    swap = ties[a_wins]
-                    hi_idx[swap] = a_idx[swap]
-                    lo_idx[swap] = b_idx[swap]
-                if distribute:
-                    kept_local.append(hi_idx)
-                else:
-                    mark_indices(hi_idx)
-                if method_name == "directional":
-                    hi_c = counts_arr[hi_idx]
-                    lo_c = counts_arr[lo_idx]
-                    lo_kept = lo_idx[2 * lo_c - 1 > hi_c]
-                    if distribute:
-                        kept_local.append(lo_kept)
-                    else:
-                        mark_indices(lo_kept)
-                big = np.flatnonzero(sizes >= 3)
-        else:
-            big = np.flatnonzero(sizes >= 2)
-
-        if len(big):
-            with trace.span("dissect.batched"):
-                # Group the edge list by cluster once (sort +
-                # searchsorted spans).
-                edge_cluster = part.cluster_of[part.edges_i]
-                edge_order = np.argsort(edge_cluster, kind="stable")
-                sorted_ec = edge_cluster[edge_order]
-                el_i = part.local_index[part.edges_i[edge_order]]
-                el_j = part.local_index[part.edges_j[edge_order]]
-                span_starts = np.searchsorted(sorted_ec, big)
-                span_ends = np.searchsorted(sorted_ec, big + 1)
-
-                def member_rank(members: np.ndarray) -> np.ndarray:
-                    """int64 [m] ascending lexicographic rank of the
-                    members' raw key strings (shorter-prefix-first across
-                    mixed lengths, i.e. Python str order, via zero-padded
-                    byte rows).  Threaded C sample sort when available
-                    (5-10x numpy's void argsort at millions of members);
-                    members are distinct keys, so the memcmp order is
-                    total either way."""
-                    padded = np.ascontiguousarray(member_bytes(members))
-                    try:
-                        from .native.loader import rank_rows_native
-                        return rank_rows_native(padded)
-                    except (ImportError, ValueError):
-                        pass
-                    void = padded.view(
-                        np.dtype((np.void, padded.shape[1]))).ravel()
-                    rank = np.empty(len(members), dtype=np.int64)
-                    rank[np.argsort(void, kind="stable")] = \
-                        np.arange(len(members), dtype=np.int64)
-                    return rank
-
-                def concat_spans(span_s: np.ndarray, lens: np.ndarray
-                                 ) -> np.ndarray:
-                    total = int(lens.sum())
-                    offs = np.zeros(len(lens), dtype=np.int64)
-                    np.cumsum(lens[:-1], out=offs[1:])
-                    return np.repeat(span_s - offs, lens) + \
-                        np.arange(total, dtype=np.int64)
-
-                big_sizes = part.ends[big] - part.starts[big]
-                owned = np.arange(len(big)) % nproc == pid if distribute \
-                    else np.ones(len(big), dtype=bool)
-                # Clusters up to 64 members dissect TOGETHER in one
-                # lockstep vectorized pass (dissect_indices_batched): at
-                # production scale there are ~a million of them and
-                # per-cluster Python setup alone costs minutes.  Larger
-                # clusters use the per-cluster CSR path.
-                batch_mask = owned & (big_sizes <= 64) \
-                    if method_name is not None \
-                    else np.zeros(len(big), dtype=bool)
-                bsel = np.flatnonzero(batch_mask)
-                if len(bsel):
-                    cl = big[bsel]
-                    lens = big_sizes[bsel]
-                    members_b = part.order[concat_spans(part.starts[cl],
-                                                        lens)]
-                    elens = span_ends[bsel] - span_starts[bsel]
-                    epos = concat_spans(span_starts[bsel], elens)
-                    moffs = np.zeros(len(lens), dtype=np.int64)
-                    np.cumsum(lens[:-1], out=moffs[1:])
-                    eoff = np.repeat(moffs, elens)
-                    padded = np.ascontiguousarray(member_bytes(members_b))
-                    try:
-                        from .native.loader import rank_rows_native
-                        rank_b = rank_rows_native(padded)
-                    except (ImportError, ValueError):
-                        void_b = padded.view(
-                            np.dtype((np.void, padded.shape[1]))).ravel()
-                        rank_b = np.empty(len(members_b), dtype=np.int64)
-                        rank_b[np.argsort(void_b, kind="stable")] = \
-                            np.arange(len(members_b), dtype=np.int64)
-                    kept_b = dissect_indices_batched(
-                        method_name, counts_arr[members_b], rank_b, lens,
-                        el_i[epos] + eoff, el_j[epos] + eoff)
-                    kept_idx = members_b[kept_b]
-                    if distribute:
-                        kept_local.append(kept_idx)
-                    else:
-                        mark_indices(kept_idx)
-            with trace.span("dissect.large"):
-                for k in np.flatnonzero(owned & ~batch_mask):
-                    c = big[k]
-                    es, ee = span_starts[k], span_ends[k]
-                    members = part.order[part.starts[c]:part.ends[c]]
-                    if method_name is not None:
-                        # Index-based vectorized dissection: no per-member
-                        # Python tuples, CSR BFS instead of list scans —
-                        # giant clusters (low-complexity libraries) stay
-                        # near O(edges).
-                        kept_idx = members[dissect_indices(
-                            method_name, counts_arr[members],
-                            member_rank(members), el_i[es:ee], el_j[es:ee])]
-                        if distribute:
-                            kept_local.append(kept_idx)
-                        else:
-                            mark_indices(kept_idx)
-                        continue
-                    # User-supplied strategy: scalar (count, str) oracle API.
-                    cluster_list = [
-                        (int(counts_arr[i]),
-                         groups.key_bytes(int(i)).decode("latin-1"))
-                        for i in members]
-                    chosen = list(cluster_dissection_func(
-                        cluster_list, max_distance, use_edit_distance))
-                    # dict.fromkeys: tolerate a custom strategy yielding
-                    # repeats.
-                    for string in dict.fromkeys(chosen):
-                        mark_key_bytes(string.encode("latin-1"))
-
-        if distribute:
-            # One combined gather for the two-member AND big-cluster shards.
-            from .parallel.distributed import allgather_int64
-            kept_all = allgather_int64(np.concatenate(kept_local)
-                                       if kept_local
-                                       else np.empty(0, dtype=np.int64))
-            if len(kept_all):
-                mark_indices(kept_all)
-
-        kept_total = int(sum(int(m.sum()) for m in kept_mask))
-        logger.info(f"Found {kept_total} distinct reads "
-                    f"in {number_of_clusters} clusters."
-                    f"({timer.get_difference()})")
+    # Built-in methods at P>1 shard their per-cluster work across hosts;
+    # the kept key indices merge through one all-gather.
+    gather = allgather_int64 if nproc > 1 and cluster_dissection_func in \
+        CLUSTER_DISSECTION_METHODS.values() else None
+    kept_mask = dissect_partition(groups, part, cluster_dissection_func,
+                                  max_distance, use_edit_distance,
+                                  shard=(pid, nproc), gather=gather)
+    logger.info(f"Found {sum(int(m.sum()) for m in kept_mask)} distinct "
+                f"reads in {part.num_clusters} clusters."
+                f"({timer.get_difference()})")
 
     # ---------------- Pass 3: filtered rewrite ---------------------------
-    if prewarm_writer:
-        with trace.span("warmup.join"):
-            while prewarm_writer:
-                prewarm_writer.pop().join()  # raises what its work raised
-    arena_ok = record_store is not None and not record_store.abandoned
-    if nproc > 1 and record_store is not None:
+    _join_warmup(prewarm_writer)
+    store = ingest.record_store
+    arena_ok = store is not None and not store.abandoned
+    if nproc > 1:
         # Both pass-3 paths synchronize through collectives, so every
         # host must take the SAME one: if any host's arena overflowed
-        # its budget, all hosts fall back to the re-streaming writer.
+        # its budget, all hosts re-stream.
         (arena_ok_hosts,) = sum_scalars(int(arena_ok))
-        if arena_ok_hosts != nproc:
-            record_store.abandon()
-            arena_ok = False
+        arena_ok = arena_ok_hosts == nproc
     if arena_ok:
         try:
-            _write_from_record_store(output_files, groups, kept_mask,
-                                     record_store, pid=pid, nproc=nproc,
+            _write_from_record_store(output_files, groups, kept_mask, store,
+                                     pid=pid, nproc=nproc,
                                      shard_base=shard_base,
                                      sharded_input=sharded_input)
         finally:
-            record_store.dispose()
+            store.dispose()
     else:
+        if store is not None:
+            store.abandon()
         _filter_and_write(input_files, output_files, check_slices, groups,
-                          kept_mask, chunk_records, cached_chunks,
-                          pid=pid, nproc=nproc, shard_base=shard_base,
-                          sharded_input=sharded_input,
-                          range_plan=range_plan, range_base=range_base)
+                          kept_mask, chunk_records, pid=pid, nproc=nproc,
+                          shard_base=shard_base, sharded_input=sharded_input,
+                          range_plan=plan.range_plan,
+                          range_base=plan.range_base)
     logger.info(f"Filtered FASTQ files based on distinct reads from each "
                 f"cluster. ({timer.get_difference()}) ")
     # The run is done with the key table: recycle its backing buffers
@@ -1983,7 +1658,6 @@ def _deduplicate_cluster_impl(
     # happens to reference a column view silently blocks the recycle of
     # a multi-GiB table (measured: per-rep finalize flapping 2 s <-> 18 s
     # at 100M reads with the reject tracing to gc-pending referrers).
-    import gc
     gc.collect()
     groups.dispose()
 
@@ -2138,8 +1812,6 @@ def _filter_and_write(input_files: List[str], output_files: List[str],
                       check_slices: Optional[List[slice]],
                       groups: KeyGroups, kept_mask: List[np.ndarray],
                       chunk_records: int,
-                      cached_chunks: Optional[
-                          List[Tuple[int, Tuple[FastqChunk, ...]]]] = None,
                       pid: int = 0, nproc: int = 1,
                       shard_base: int = 0,
                       sharded_input: bool = False,
@@ -2150,10 +1822,10 @@ def _filter_and_write(input_files: List[str], output_files: List[str],
     (reference filter_fastq_files_on_set, __init__.py:189-206; no quality
     filter is applied here, matching the reference's behavior).
 
-    Reads from the in-RAM pass-1 chunks when available, else re-streams
-    the inputs.  Compression runs on a writer thread (the native zlib
-    writer releases the GIL), overlapping with membership computation of
-    the next chunk.
+    Re-streams the inputs: this host's record window under a multi-host
+    byte-range plan, else every chunk it owns.  Compression runs on a
+    writer thread (the native zlib writer releases the GIL), overlapping
+    with membership computation of the next chunk.
 
     Multi-host: each host renders the chunks it owns (first-wins needs no
     claim state — pass 1's first_pos decides), writes raw per-chunk part
@@ -2221,9 +1893,7 @@ def _filter_and_write(input_files: List[str], output_files: List[str],
     worker = threading.Thread(target=trace.carry(write_worker),
                               daemon=True)
     worker.start()
-    if cached_chunks is not None:
-        source = iter(cached_chunks)  # entries carry (base, chunks)
-    elif range_plan is not None:
+    if range_plan is not None:
         def _range_source():
             running = range_base
             for c in _zip_chunks(input_files, chunk_records,

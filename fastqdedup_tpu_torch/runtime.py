@@ -18,22 +18,6 @@ _allocator_tuned = False
 _MADV_POPULATE_WRITE = 23  # Linux 5.14+
 _libc = None
 _populate_ok = True
-_pop_bytes = 0
-_pop_secs = 0.0
-
-
-def observed_fault_cost() -> Optional[float]:
-    """Measured page-creation cost in seconds/GiB, or None if too little
-    data yet (< 256 MiB populated).
-
-    Aggregated over every :func:`populate` call this process made.  On
-    healthy hosts this is ~0.05-0.3 s/GiB; on virtualized hosts with
-    lazily-backed guest memory it has measured 2-10 s/GiB *and grows
-    with resident set size* — callers use it to decide whether holding
-    data in RAM is cheaper than recomputing it (pipeline chunk cache)."""
-    if _pop_bytes < (256 << 20):
-        return None
-    return _pop_secs / (_pop_bytes / (1 << 30))
 
 
 def populate(a: np.ndarray) -> None:
@@ -45,12 +29,11 @@ def populate(a: np.ndarray) -> None:
     the fault path, not the zeroing.  No-op (and disabled after the
     first failure) on kernels without MADV_POPULATE_WRITE; disable
     explicitly with FASTQDEDUP_POPULATE=0."""
-    global _libc, _populate_ok, _pop_bytes, _pop_secs
+    global _libc, _populate_ok
     if not _populate_ok or os.environ.get("FASTQDEDUP_POPULATE") == "0":
         return
     try:
         import ctypes
-        import time
 
         if _libc is None:
             _libc = ctypes.CDLL(None, use_errno=True)
@@ -60,15 +43,11 @@ def populate(a: np.ndarray) -> None:
         end = (addr + nbytes) & ~4095
         if end <= start:
             return
-        t0 = time.perf_counter()
         rc = _libc.madvise(ctypes.c_void_p(start),
                            ctypes.c_size_t(end - start),
                            _MADV_POPULATE_WRITE)
         if rc != 0:
             _populate_ok = False
-        else:
-            _pop_bytes += end - start
-            _pop_secs += time.perf_counter() - t0
     except Exception:  # pragma: no cover - best-effort
         _populate_ok = False
 

@@ -328,27 +328,25 @@ def _bgzf_pair(tmp_path):
 
 
 @pytest.mark.parametrize("arena,readers,edit", [
-    ("1", "1", False), ("0", "1", False), ("1", "3", False),
-    ("0", "3", False), ("restream", "3", False), ("1", "3", True)])
+    ("1", "1", False), ("1", "3", False), ("restream", "3", False),
+    ("1", "3", True)])
 def test_two_process_byte_range_ingest_parity(tmp_path, arena, readers,
                                               edit):
     """BGZF inputs take the byte-range ingest path (each process inflates
     and parses only its record range); the merged output equals the JAX
-    package's single-process output, on all three pass-3 layouts (record
-    arena, chunk cache, and — with a 1-byte memory limit — re-streaming
-    only the process's window), with one reader or three per process,
-    and in ``--edit`` mode."""
+    package's single-process output, on both pass-3 layouts (record
+    arena, and — with a 1-byte memory limit — re-streaming only the
+    process's window), with one reader or three per process, and in
+    ``--edit`` mode."""
     srcs = _bgzf_pair(tmp_path)
     single = [tmp_path / "s1.fastq.gz", tmp_path / "s2.fastq.gz"]
     jax_dedup([str(s) for s in srcs], [str(o) for o in single], None, 1,
               0.001, use_edit_distance=edit, chunk_records=64)
 
     dist = [tmp_path / "d1.fastq.gz", tmp_path / "d2.fastq.gz"]
+    env = {"FASTQDEDUP_INGEST_READERS": readers}
     if arena == "restream":
-        env = {"FASTQDEDUP_RECORD_ARENA": "0", "FASTQDEDUP_MEMORY_LIMIT": "1"}
-    else:
-        env = {"FASTQDEDUP_RECORD_ARENA": arena}
-    env["FASTQDEDUP_INGEST_READERS"] = readers
+        env["FASTQDEDUP_MEMORY_LIMIT"] = "1"
     run_two_processes(tmp_path, f"""
 from fastqdedup_tpu_torch import pipeline
 srcs = [{str(srcs[0])!r}, {str(srcs[1])!r}]

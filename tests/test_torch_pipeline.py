@@ -264,37 +264,35 @@ def test_arity_validation():
 
 
 def test_memory_budget_fallback_restreams(tmp_path, monkeypatch):
-    """With a 1-byte in-RAM budget the chunk cache drops at once and the
-    record arena is abandoned after its first part, so pass 3 re-streams
-    the input from disk: the same bytes, and the JAX package's."""
+    """With a 1-byte in-RAM budget the record arena is abandoned after
+    its first part, so pass 3 re-streams the input from disk: the same
+    bytes, and the JAX package's."""
     records = [(f"r{i} x", "ACGTACGTACGT" if i % 2 else "ACGTACGTACGA",
                 "I" * 12) for i in range(50)]
-    cached = _run_both(tmp_path, [records], max_average_error_rate=1.0)
+    arena = _run_both(tmp_path, [records], max_average_error_rate=1.0)
     monkeypatch.setenv("FASTQDEDUP_MEMORY_LIMIT", "1")
     (tmp_path / "streamed").mkdir()
     streamed = _run_both(tmp_path / "streamed", [records],
                          max_average_error_rate=1.0)
-    assert _read_out(cached["torch"][0]) == _read_out(streamed["torch"][0])
+    assert _read_out(arena["torch"][0]) == _read_out(streamed["torch"][0])
 
 
 def test_record_arena_paths_byte_identical(tmp_path, monkeypatch):
-    """All three pass-3 strategies of the port write the JAX package's
-    bytes: record arena (default), chunk cache (arena off), re-stream (no
-    cache).  Paired files with Illumina comment headers."""
+    """Both pass-3 layouts of the port write the JAX package's bytes:
+    record arena (default) and re-stream (the arena over a 1-byte
+    budget).  Paired files with Illumina comment headers."""
     reads = _reads(random.Random(17), 400, 24)
     inputs = [[(f"{n} 1:x", s, q) for n, s, q in reads],
               [(f"{n} 2:x", s[::-1], q) for n, s, q in reads]]
     runs = []
     for tag, env in (("arena", {}),
-                     ("cached", {"FASTQDEDUP_RECORD_ARENA": "0"}),
-                     ("streamed", {"FASTQDEDUP_RECORD_ARENA": "0",
-                                   "FASTQDEDUP_MEMORY_LIMIT": "1"})):
+                     ("streamed", {"FASTQDEDUP_MEMORY_LIMIT": "1"})):
         for key, value in env.items():
             monkeypatch.setenv(key, value)
         (tmp_path / tag).mkdir()
         outs = _run_both(tmp_path / tag, inputs)
         runs.append([_read_out(o) for o in outs["torch"]])
-    assert runs[0] == runs[1] == runs[2]
+    assert runs[0] == runs[1]
 
 
 def test_custom_dissection_with_unknown_keys(tmp_path):

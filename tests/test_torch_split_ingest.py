@@ -10,10 +10,11 @@ reader and are mapped to exact ordinals once pass 1 has drained.
 Held here: every seam of inputs written in tiny BGZF members (mid-line,
 on a line start, on a record start, with quality lines that start with
 '@' or '+'); the outputs against serial ingest and against the JAX
-package for 2-8 readers in each pass-3 layout; inputs that keep their
-path (several files, plain gzip, serial ingest); malformed input, which
-never gives another output than the serial reader's; and the position
-map against the counted plan's record ranges.
+package for 2-8 readers in both pass-3 layouts; inputs that keep their
+path (several files, plain gzip, one reader); malformed input, which
+never gives another output than the serial reader's; the position map
+against the counted plan's record ranges; and the plan each input
+takes (``pipeline._plan_pass1``).
 """
 
 import gzip
@@ -169,11 +170,9 @@ def _torch_run(path, out, monkeypatch, env, chunk_records=97):
         return f.read(), {k: after[k] - before.get(k, 0) for k in after}
 
 
+# The record arena, and the arena over its budget: pass 3 re-streams.
 LAYOUTS = {
     "arena": {},
-    "cache": {"FASTQDEDUP_RECORD_ARENA": "0"},
-    "restream": {"FASTQDEDUP_RECORD_ARENA": "0",
-                 "FASTQDEDUP_MEMORY_LIMIT": "1"},
     "arena_abandoned": {"FASTQDEDUP_MEMORY_LIMIT": "1"},
 }
 
@@ -186,8 +185,7 @@ def test_outputs_match_serial_ingest_and_jax(tmp_path, monkeypatch,
     serial, _ = _torch_run(path, str(tmp_path / "serial.fastq.gz"),
                            monkeypatch,
                            {**LAYOUTS[layout],
-                            "FASTQDEDUP_PARALLEL_INGEST": "0"})
-    monkeypatch.delenv("FASTQDEDUP_PARALLEL_INGEST")
+                            "FASTQDEDUP_INGEST_READERS": "1"})
     split, moved = _torch_run(path, str(tmp_path / "split.fastq.gz"),
                               monkeypatch,
                               {"FASTQDEDUP_INGEST_READERS": str(readers)})
@@ -211,11 +209,11 @@ def test_fewer_records_than_readers(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["paired", "three_files", "plain_gzip",
-                                  "serial", "one_reader"])
+                                  "one_reader"])
 def test_other_inputs_keep_their_path(tmp_path, monkeypatch, case):
     """Several files zip by record (the counted plan), plain gzip has no
-    members to split, serial ingest and one reader read serially: the
-    JAX package's bytes, and no part opened at a member split."""
+    members to split, one reader reads serially: the JAX package's
+    bytes, and no part opened at a member split."""
     n_files = {"paired": 2, "three_files": 3}.get(case, 1)
     paths = []
     for k in range(n_files):
@@ -227,8 +225,7 @@ def test_other_inputs_keep_their_path(tmp_path, monkeypatch, case):
         else:
             _write_bgzf(path, data, _cuts(data, "random", seed=k)[::6])
         paths.append(path)
-    env = {"serial": {"FASTQDEDUP_PARALLEL_INGEST": "0"},
-           "one_reader": {"FASTQDEDUP_INGEST_READERS": "1"}}.get(
+    env = {"one_reader": {"FASTQDEDUP_INGEST_READERS": "1"}}.get(
         case, {"FASTQDEDUP_INGEST_READERS": "4"})
     for key, value in env.items():
         monkeypatch.setenv(key, value)
@@ -270,7 +267,7 @@ def test_seam_that_is_not_a_record_start_never_changes_the_output(
         with monkeypatch.context() as m:
             serial, _ = _torch_run(path, str(tmp_path / f"s{tag}.fastq.gz"),
                                    m, {**layout,
-                                       "FASTQDEDUP_PARALLEL_INGEST": "0"})
+                                       "FASTQDEDUP_INGEST_READERS": "1"})
         with monkeypatch.context() as m:
             calls.clear()
             split, moved = _torch_run(path, str(tmp_path / f"{tag}.fastq.gz"),
@@ -293,7 +290,7 @@ def test_malformed_input_raises_the_serial_error(tmp_path, monkeypatch,
     path = str(tmp_path / "in.fastq.gz")
     _write_bgzf(path, data, _cuts(data, "random", seed=2)[::4])
     errors = []
-    for env in ({"FASTQDEDUP_PARALLEL_INGEST": "0"},
+    for env in ({"FASTQDEDUP_INGEST_READERS": "1"},
                 {"FASTQDEDUP_INGEST_READERS": "4"}):
         with monkeypatch.context() as m:
             with pytest.raises(FastqFormatError) as caught:
@@ -416,3 +413,54 @@ print(json.dumps([result["correct"], result["metrics"]]))
     correct, metrics = json.loads(done.stdout.strip().splitlines()[-1])
     assert correct
     assert metrics["pass1.split_share"]["value"] == 100.0
+
+
+@pytest.mark.parametrize("case", ["one_file", "sharded_input", "two_files",
+                                  "plain_gzip", "one_reader",
+                                  "split_ingest_off"])
+def test_pass1_plan_of_each_input(tmp_path, monkeypatch, case):
+    """``_plan_pass1`` on one host, or one process of a sharded-input
+    job: one BGZF file splits at member boundaries, several files take
+    the counted plan, and plain gzip, one reader or split ingest turned
+    off read serially.  Its counters name the plan."""
+    n_files = 2 if case == "two_files" else 1
+    paths = []
+    for k in range(n_files):
+        data = _records(500, seed=70 + k)
+        path = str(tmp_path / f"in{k}.fastq.gz")
+        if case == "plain_gzip":
+            with gzip.open(path, "wb") as f:
+                f.write(data)
+        else:
+            _write_bgzf(path, data, _cuts(data, "random", seed=k)[::4])
+        paths.append(path)
+    monkeypatch.setenv("FASTQDEDUP_INGEST_READERS",
+                       "1" if case == "one_reader" else "3")
+    pid, nproc = (1, 2) if case == "sharded_input" else (0, 1)
+    before = trace.counts()
+    plan = pipeline._plan_pass1(paths, pid, nproc, case == "sharded_input",
+                                case != "split_ingest_off")
+    after = trace.counts()
+    moved = {k: after[k] - before.get(k, 0) for k in after
+             if k.startswith("pass1.parts.")}
+    moved = {k: v for k, v in moved.items() if v}
+    assert plan.range_plan is None and plan.range_base == 0
+    parts = plan.parallel_parts
+    if case in ("plain_gzip", "one_reader", "split_ingest_off"):
+        assert parts is None and plan.split_shift is None and not moved
+        return
+    assert len(parts) == 3
+    if case == "two_files":
+        assert plan.split_shift is None
+        assert moved == {"pass1.parts.counted": 3}
+        assert [base for _, base in parts] == sorted(
+            base for _, base in parts)
+        assert sum(per_file[0][2] for per_file, _ in parts) == 500
+        assert all(len(per_file) == 2 for per_file, _ in parts)
+        return
+    assert moved == {"pass1.parts.split": 3}
+    assert plan.split_shift == pipeline._split_shift(3)
+    assert [base for _, base in parts] == \
+        [p << plan.split_shift for p in range(3)]
+    assert sum((_parse(paths[0], split=per_file[0])
+                for per_file, _ in parts), []) == _parse(paths[0])

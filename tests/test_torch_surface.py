@@ -46,6 +46,9 @@ NOT_PORTED = {
     ("runtime.py", "configure_jax"):
         "sets up JAX's compilation cache; the port's one setting of its "
         "own is FASTQDEDUP_TORCH_DEVICE (runtime.device)",
+    ("runtime.py", "observed_fault_cost"):
+        "fed only the chunk-cache layout of pass 3, which the port does "
+        "not have: pass 3 reads the record arena or re-streams",
     ("native/gen_score_lut.py", "generate"):
         "writes the header of the shared C source, which the port builds "
         "by path and does not fork",

@@ -98,8 +98,8 @@ RUNS = {
         "pairs.device_verify", "pairs.drain", "pairs.oversized"}, set()),
     "edit": ({}, True, (), {
         "pairs.pad", "pairs.candidates", "pairs.edit_verify"}, set()),
-    "re-stream": ({**HOST_ROUTE, "FASTQDEDUP_RECORD_ARENA": "0"}, False, (),
-                  {"pass3.read"}, {"pass1.render"}),
+    "re-stream": ({**HOST_ROUTE, "FASTQDEDUP_MEMORY_LIMIT": "1"}, False, (),
+                  {"pass3.read"}, set()),
 }
 EVERY_RUN = set(PARENTS) - CARD_ONLY - {
     name for _, _, _, opened, _ in RUNS.values() for name in opened} - {
@@ -109,8 +109,7 @@ EVERY_RUN = set(PARENTS) - CARD_ONLY - {
 @pytest.fixture(autouse=True)
 def _cpu_device(monkeypatch):
     monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", "cpu")
-    for key in ("FASTQDEDUP_PARALLEL_INGEST", "FASTQDEDUP_INGEST_READERS",
-                "FASTQDEDUP_RECORD_ARENA"):
+    for key in ("FASTQDEDUP_INGEST_READERS", "FASTQDEDUP_MEMORY_LIMIT"):
         monkeypatch.delenv(key, raising=False)
     logger = logging.getLogger("fastqdedup")
     level = logger.level
