@@ -41,6 +41,12 @@ Phases, each printing one JSON line to stdout:
    byte, on 9 inputs: FASTQ at a member's edge sizes and one whole
    window of the card writer (``bgzf.DEVICE_WINDOW_MEMBERS`` members),
    random bytes that take stored blocks, zeros, long repeats;
+   ``edit-candidates`` — each kernel of the ``--edit`` route's card join
+   (``ops/edit_candidates``) against its plain version on the same input
+   and the whole join against the host's, byte for byte (the cell's
+   traffic and keys with indels, d = 1 and 2, three shards, short keys,
+   delayed uploads), then the join at the benchmark cell's shape timed
+   step by step beside the host join (``--edit-candidates`` alone);
    ``verify`` — every kernel against host oracles that share no code with
    the port's plain versions (numpy all-pairs comparisons, the scalar
    ``distance.within_distance``) at the 23 geometries of
@@ -291,12 +297,20 @@ KERNELS = {
         "fastqdedup_tpu_torch/csrc/deflate.cu",
         "none: the JAX package deflates on the host "
         "(fastqdedup_tpu/io/bgzf.py)"),
+    **{name: ("fastqdedup_tpu_torch/csrc/edit_candidates.cu",
+              "none: the JAX package joins the edit windows on the host "
+              "(fastqdedup_tpu/ops/bucket.py)")
+       for name in ("edit_window_hash", "edit_join_count",
+                    "edit_join_write")},
 }
 # Paths whose runs must launch each kernel: every path writes .gz on
 # the card (the distributed path in its sharded-input job).
 KERNEL_PATHS = {"banded_within_edit_distance": ("edit",),
                 "deflate_members": ("hamming", "edit", "configs",
-                                    "distributed")}
+                                    "distributed"),
+                "edit_window_hash": ("edit", "distributed"),
+                "edit_join_count": ("edit", "distributed"),
+                "edit_join_write": ("edit", "distributed")}
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates, full
@@ -1432,6 +1446,327 @@ def deflate_cells(workdir: str, reads: int = 2_000_000) -> None:
             os.unlink(path)
 
 
+# --------------------------------------------------------------------- #
+# The --edit route's candidate join on the card (ops/edit_candidates)
+
+
+def edit_join_keys(seed: int, kind: str, molecules: int):
+    """(entries, padded key matrix) of the edit route's input.
+    ``"cell"``: the benchmark cell's traffic, ``molecules`` 100 bp
+    molecules of 5 reads each, 15% of the reads with one substitution
+    (400,000 molecules: 2M reads, about 620,000 unique keys of one length
+    group); ``"indel"``: ``molecules`` molecules, each beside a copy with
+    one substitution and two copies of which half lose or gain a base
+    (lengths 99-101)."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    mol = bases[rng.integers(0, 4, (molecules, 100))]
+    if kind == "cell":
+        hit = rng.integers(0, molecules, int(0.15 * 5 * molecules))
+        subs = mol[hit]
+        subs[np.arange(len(hit)), rng.integers(0, 100, len(hit))] = \
+            bases[rng.integers(0, 4, len(hit))]
+        rows = np.unique(np.concatenate([mol, subs]), axis=0)
+        keys = [row.tobytes() for row in rows]
+    else:
+        subs = mol.copy()
+        subs[np.arange(molecules), rng.integers(0, 100, molecules)] = \
+            bases[rng.integers(0, 4, molecules)]
+        moved, lengths = apply_indels(rng, np.concatenate([mol, mol]), 0.5,
+                                      bases)
+        keys = sorted({row.tobytes() for row in np.concatenate([mol, subs])}
+                      | {row[:n].tobytes()
+                         for row, n in zip(moved, lengths)})
+    lengths = np.array([len(k) for k in keys], dtype=np.int64)
+    entries = []
+    padded = np.full((len(keys), 112), 0xFF, dtype=np.uint8)
+    for length in np.unique(lengths):
+        idx = np.flatnonzero(lengths == length)
+        matrix = np.frombuffer(b"".join(keys[i] for i in idx),
+                               dtype=np.uint8).reshape(len(idx), length)
+        padded[idx, :length] = matrix
+        entries.append((int(length), matrix, idx))
+    return entries, padded
+
+
+def edit_join_plan(entries, d: int, shard=(0, 1)):
+    from fastqdedup_tpu_torch.ops.bucket import edit_window_plan
+
+    return edit_window_plan([m for _, m, _ in entries],
+                            [i for _, _, i in entries], d, shard)
+
+
+def host_join_codes(plan, shard=(0, 1)) -> np.ndarray:
+    """The host join's codes from its composite branch, at any size."""
+    from fastqdedup_tpu_torch.ops import bucket
+
+    low = bucket.EDIT_RADIX_MIN_ROWS
+    bucket.EDIT_RADIX_MIN_ROWS = 1
+    try:
+        return bucket.host_edit_join(plan, shard)
+    finally:
+        bucket.EDIT_RADIX_MIN_ROWS = low
+
+
+def dense_join_keys(entries, padded):
+    """The entries and key matrix as alphabet indices (A, C, G, T -> 0-3,
+    the pad 0xFF kept), which pack into nibbles."""
+    lut = np.full(256, 0xFF, dtype=np.uint8)
+    lut[np.frombuffer(b"ACGT", dtype=np.uint8)] = np.arange(4)
+    return ([(length, lut[matrix], idx) for length, matrix, idx in entries],
+            lut[padded])
+
+
+def plain_join_codes(keys: torch.Tensor, plan) -> np.ndarray:
+    """The join's plain steps on ``keys``' device: the plain window hash,
+    ``torch.sort``, the plain pair enumeration, the codes' sort and
+    unique, one copy back."""
+    from fastqdedup_tpu_torch.ops import edit_candidates as ec
+
+    specs, ids = ec.spec_table(plan)
+    values, kept = ec.window_hash_plain(
+        keys, torch.from_numpy(ids).to(keys.device), torch.from_numpy(specs),
+        plan.rows, plan.gid_bits)
+    ordered = ec.sort_values(values)
+    left, right, gids = ec._pairs_plain(ordered[:int(kept)], plan.gid_bits)
+    gi, gj = gids[left], gids[right]
+    codes = torch.minimum(gi, gj) * (1 << 31) + torch.maximum(gi, gj)
+    return ec.unique_codes(codes).cpu().numpy()
+
+
+def edit_join_steps(keys: torch.Tensor, plan, shard=(0, 1),
+                    packed: bool = False) -> dict:
+    """Every step of the card join on ``keys``' device, by name."""
+    from fastqdedup_tpu_torch.ops import edit_candidates as ec
+
+    specs, ids = ec.spec_table(plan)
+    dev = keys.device
+    values, kept = ec.window_hash(keys, torch.from_numpy(ids).to(dev),
+                                  torch.from_numpy(specs).to(dev),
+                                  plan.rows, plan.gid_bits, shard, packed)
+    ordered = ec.sort_values(values)
+    counts = ec.join_count(ordered, kept, plan.gid_bits)
+    ends = torch.cumsum(counts, 0)
+    total = int(ends[-1]) if len(ends) else 0
+    codes = ec.join_write(ordered, kept, plan.gid_bits, ends, total)
+    return {"values": values, "kept": kept, "sorted": ordered,
+            "counts": counts, "codes": codes}
+
+
+def edit_join_cost(plan, n_keys: int, key_length: int, pairs: int,
+                   unique: int) -> dict:
+    """Bytes of the card join: the key bytes read once; the composites
+    written, sorted (read and written once) and read by both join passes;
+    the codes written, sorted and the unique ones written."""
+    rows = plan.rows
+    return {"bytes": n_keys * key_length + 8 * rows * 4 + 8 * pairs * 3
+            + 8 * unique, "ops": 0, "ops_type": "int32"}
+
+
+def check_edit_candidates(dev) -> dict:
+    """The card join's kernels against their plain versions, each step on
+    the same input, and the whole join against the host join's composite
+    branch, byte for byte: both traffics at d = 1 and 2, each of three
+    shards, the key matrix nibble-packed (``engine.PACK_KEY_MATRIX``),
+    short keys, and every upload delayed on the stream.  Then the join at
+    the cell's shape (``--edit-candidates`` alone): every step timed, the
+    whole join beside the host join and the plain join on the card.
+    Returns each kernel's line for the kernel table, with the elements
+    that differed from the plain version over every case (``mismatches``,
+    0 or the run fails)."""
+    from fastqdedup_tpu_torch.ops import edit_candidates as ec
+    from fastqdedup_tpu_torch.ops.edit import pack_nibble_rows
+
+    t0 = time.perf_counter()
+    summary = {name: {"mismatches": 0, "cases": 0} for name in ec.LAUNCHES}
+    cases = [("cell", 1, (0, 1), False), ("cell", 2, (0, 1), False),
+             ("indel", 1, (0, 1), False), ("indel", 2, (0, 1), False)] + \
+        [("indel", 1, (p, 3), False) for p in range(3)] + \
+        [("indel", 1, (0, 1), True), ("indel", 2, (1, 3), True),
+         ("cell", 1, (0, 1), True)]
+
+    def differing(got, want):
+        if got.shape != want.shape:
+            return max(got.numel(), want.numel())
+        return int((got != want).sum())
+
+    for kind, d, shard, packed in cases:
+        entries, padded = edit_join_keys(40 + d, kind, 3000)
+        if packed:
+            entries, padded = dense_join_keys(entries, padded)
+        plan = edit_join_plan(entries, d, shard)
+        keys = torch.from_numpy(pack_nibble_rows(padded) if packed
+                                else padded)
+        got = edit_join_steps(keys.to(dev), plan, shard, packed)
+        want = edit_join_steps(keys, plan, shard, packed)
+        # Each kernel on the other's input: the plain sort's order.
+        ordered = got["sorted"]
+        counts = ec.join_count(ordered, got["kept"], plan.gid_bits)
+        ends = torch.cumsum(counts, 0)
+        codes = ec.join_write(ordered, got["kept"], plan.gid_bits, ends,
+                              int(ends[-1]))
+        wrong = {
+            "edit_window_hash": differing(got["values"].cpu(),
+                                          want["values"])
+            + abs(int(got["kept"]) - int(want["kept"])),
+            "edit_join_count": differing(counts.cpu(), want["counts"]),
+            "edit_join_write": differing(codes.cpu(), want["codes"]),
+        }
+        card = ec.join_codes(keys.to(dev), plan, shard, packed)
+        host = host_join_codes(plan, shard)
+        case = f"{kind} d={d} shard={shard} packed={packed}"
+        emit({"phase": "edit-candidates", "case": case, "keys": len(padded),
+              "rows": plan.rows, "kept": int(got["kept"]),
+              "pairs": len(got["codes"]), "codes": len(card),
+              "mismatches": wrong,
+              "join_equal_host": bool(np.array_equal(card, host))})
+        for name, count in wrong.items():
+            summary[name]["mismatches"] += count
+            summary[name]["cases"] += 1
+            if count:
+                fail(f"{name} disagrees with its plain version ({case})")
+        if not np.array_equal(card, host) or not len(host):
+            fail(f"card join of {case}: other codes than the host join")
+    # Short keys (the host's complete graph, no window) and keys too
+    # short for any pair.
+    for keys_list in ([b"AC", b"A", b"G"], [b"ACGTAC", b"ACGTAA", b"A"]):
+        from fastqdedup_tpu_torch.ops.bucket import (
+            edit_candidate_pairs,
+            edit_pairs_of_codes,
+        )
+
+        lengths = np.array([len(k) for k in keys_list])
+        entries = []
+        padded = np.full((len(keys_list), 16), 0xFF, dtype=np.uint8)
+        for length in np.unique(lengths):
+            idx = np.flatnonzero(lengths == length)
+            matrix = np.frombuffer(b"".join(keys_list[i] for i in idx),
+                                   dtype=np.uint8).reshape(len(idx), length)
+            padded[idx, :length] = matrix
+            entries.append((int(length), matrix, idx))
+        plan = edit_join_plan(entries, 1)
+        got = edit_pairs_of_codes(plan, ec.join_codes(
+            torch.from_numpy(padded).to(dev), plan))
+        want = edit_candidate_pairs([m for _, m, _ in entries],
+                                    [i for _, _, i in entries], 1)
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            fail(f"card join of short keys {keys_list}: other pairs")
+    # Every upload of the join delayed on the stream.
+    entries, padded = edit_join_keys(45, "indel", 3000)
+    plan = edit_join_plan(entries, 1)
+    undo = delayed(ec, "upload")
+    try:
+        card = ec.join_codes(torch.from_numpy(padded).to(dev), plan)
+    finally:
+        undo()
+    if not np.array_equal(card, host_join_codes(plan)):
+        fail("card join with delayed uploads: other codes than the host")
+    emit({"phase": "edit-candidates", "check": "short keys, delayed "
+          "uploads", "equal": True, "seconds": time.perf_counter() - t0})
+    return summary
+
+
+def time_edit_candidates(dev, summary: dict) -> None:
+    """The card join at the cell's shape, against the host join and the
+    plain version (on the host's cores, once): every step's time (kernels
+    from CUDA-graph replays, L2-warm; the sorts between events; whole
+    joins on the host's clock after a synchronize) and its bound."""
+    from fastqdedup_tpu_torch.ops import edit_candidates as ec
+
+    t0 = time.perf_counter()
+    entries, padded = edit_join_keys(7, "cell", 400_000)
+    plan = edit_join_plan(entries, 1)
+    gen_s = time.perf_counter() - t0
+    keys = torch.from_numpy(padded).to(dev)
+    torch.cuda.synchronize()
+
+    def host_join():
+        return host_join_codes(plan)
+
+    def card_join():
+        return ec.join_codes(keys, plan)
+
+    host_s, card_s = [], []
+    for _ in range(3):
+        for fn, store in ((card_join, card_s), (host_join, host_s),
+                          (host_join, host_s), (card_join, card_s)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            store.append(time.perf_counter() - t)
+    host = host_join()
+    card = card_join()
+    if not np.array_equal(card, host):
+        fail("card join at the cell's shape: other codes than the host")
+    t = time.perf_counter()
+    plain = ec.join_codes(torch.from_numpy(padded), plan)
+    plain_s = time.perf_counter() - t
+    if not np.array_equal(plain, host):
+        fail("plain join at the cell's shape: other codes than the host")
+    # The plain steps on the card's tensors (no hand-written kernel), in
+    # turns with the card join, on the host's clock after a synchronize.
+    plain_card_s, card_turn_s = [], []
+    plain_card = plain_join_codes(keys, plan)
+    if not np.array_equal(plain_card, host):
+        fail("plain join on the card: other codes than the host")
+    for _ in range(3):
+        for fn, store in ((card_join, card_turn_s),
+                          (lambda: plain_join_codes(keys, plan),
+                           plain_card_s),
+                          (lambda: plain_join_codes(keys, plan),
+                           plain_card_s),
+                          (card_join, card_turn_s)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            store.append(time.perf_counter() - t)
+    plain_card_ms = statistics.median(event_ms(
+        lambda: plain_join_codes(keys, plan)))
+    steps = edit_join_steps(keys, plan)
+    values, kept = steps["values"], steps["kept"]
+    ordered, ends = steps["sorted"], torch.cumsum(steps["counts"], 0)
+    total = int(ends[-1])
+    specs, ids = ec.spec_table(plan)
+    specs_dev = torch.from_numpy(specs).to(dev)
+    ids_dev = torch.from_numpy(ids).to(dev)
+    timed = {
+        "edit_window_hash": graph_ms(lambda: ec.window_hash(
+            keys, ids_dev, specs_dev, plan.rows, plan.gid_bits)),
+        "torch_sort": event_ms(lambda: ec.sort_values(values)),
+        "edit_join_count": graph_ms(lambda: ec.join_count(
+            ordered, kept, plan.gid_bits)),
+        "scan": event_ms(lambda: torch.cumsum(steps["counts"], 0)),
+        "edit_join_write": graph_ms(lambda: ec.join_write(
+            ordered, kept, plan.gid_bits, ends, total)),
+        "unique": event_ms(lambda: ec.unique_codes(steps["codes"])),
+    }
+    medians = {k: statistics.median(v) for k, v in timed.items()}
+    cost = edit_join_cost(plan, len(padded), 100, total, len(card))
+    bound = kernel_bound(cost)
+    line = {"phase": "edit-candidates", "case": "the cell's shape: 2M "
+            "default reads, d=1", "keys": len(padded), "rows": plan.rows,
+            "pairs": total, "codes": len(card), "generate_s": gen_s,
+            "host_join_s": statistics.median(host_s),
+            "card_join_s": statistics.median(card_s),
+            "plain_join_s": plain_s,
+            "plain_card_join_s": statistics.median(plain_card_s),
+            "plain_card_join_runs_s": plain_card_s,
+            "card_join_turns_s": card_turn_s,
+            "plain_card_join_event_ms": plain_card_ms,
+            "host_join_runs_s": host_s, "card_join_runs_s": card_s,
+            "steps_ms": medians,
+            "steps_timing": "kernels: CUDA-graph replays of 20 launches, "
+                            "L2-warm; sorts, scan, unique: one call "
+                            "between two events",
+            "device_ms": sum(medians.values()),
+            **bound}
+    line["share_of_bound"] = bound["bound_ms"] / line["device_ms"]
+    emit(line)
+    for name in ("edit_window_hash", "edit_join_count", "edit_join_write"):
+        summary[name].update({"ms": medians[name], "shape": line["case"]})
+
+
 def check_against_oracles(dev) -> dict:
     """The ``verify`` phase: ``bench_kernels_torch.verify_kernels`` on
     the card; returns the geometries checked, by kernel."""
@@ -1488,20 +1823,21 @@ def environment(overrides):
 
 def launch_counts() -> dict:
     """Every kernel's launch count, by name."""
-    from fastqdedup_tpu_torch.ops import (deflate_kernels, edit_kernels,
-                                          hamming_kernels)
+    from fastqdedup_tpu_torch.ops import (deflate_kernels, edit_candidates,
+                                          edit_kernels, hamming_kernels)
 
     return {**hamming_kernels.LAUNCHES, **edit_kernels.LAUNCHES,
-            **deflate_kernels.LAUNCHES}
+            **deflate_kernels.LAUNCHES, **edit_candidates.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    from fastqdedup_tpu_torch.ops import (deflate_kernels, edit_kernels,
-                                          hamming_kernels)
+    from fastqdedup_tpu_torch.ops import (deflate_kernels, edit_candidates,
+                                          edit_kernels, hamming_kernels)
 
     hamming_kernels.reset_launches()
     edit_kernels.reset_launches()
     deflate_kernels.reset_launches()
+    edit_candidates.reset_launches()
 
 
 def run_pipeline(workdir: str, name: str, files: dict, tag: str,
@@ -2555,9 +2891,12 @@ def run_packed_keys(rounds: int, names) -> int:
     forms get their entries as dense alphabet indices first (timed as
     ``encode_s``, paid by both).  Per run: the whole run, the edit-edge
     step, the packing and the verification batches; and once per input
-    the copy of a matrix of the plain and of the packed size."""
+    the copy of a matrix of the plain and of the packed size.  Every run,
+    packed or not, must join its candidates on the card
+    (``edit_window_hash`` launched)."""
     from fastqdedup_tpu_torch import engine
     from fastqdedup_tpu_torch.ops import edit as edit_ops
+    from fastqdedup_tpu_torch.ops import edit_candidates
 
     os.environ["FASTQDEDUP_TORCH_DEVICE"] = "cuda"
     dev = torch.device("cuda", 0)
@@ -2599,8 +2938,13 @@ def run_packed_keys(rounds: int, names) -> int:
                 for packed in (False, True, True, False):
                     engine.PACK_KEY_MATRIX = packed
                     stats.clear()
+                    joins = edit_candidates.LAUNCHES["edit_window_hash"]
                     line = run_pipeline(workdir, name, files,
                                         f"{name}-t{turn}-p{int(packed)}")
+                    if edit_candidates.LAUNCHES["edit_window_hash"] \
+                            == joins:
+                        fail(f"--packed-keys {name} packed={packed}: the "
+                             f"candidates were not joined on the card")
                     rows[packed].append({"run_s": line["seconds"],
                                          **stats})
             engine.PACK_KEY_MATRIX = False
@@ -2963,8 +3307,13 @@ def main(argv) -> int:
         return run_rowwise_variants(dev, argv[1:])
     if argv == ["--deflate"]:
         return run_deflate(dev)
+    if argv == ["--edit-candidates"]:
+        time_edit_candidates(dev, check_edit_candidates(dev))
+        return 0
     summary = check_kernels(dev)
     summary["deflate_members"] = check_deflate(dev)
+    summary.update(check_edit_candidates(dev))
+    time_edit_candidates(dev, summary)
     if argv == ["--kernels"]:
         return 0
     oracle_geometries = check_against_oracles(dev)

@@ -32,8 +32,10 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 
 from .ops.bucket import (
-    edit_candidate_pairs,
+    edit_pairs_of_codes,
+    edit_window_plan,
     hamming_neighbor_pairs_bucketed,
+    host_edit_join,
 )
 from .ops.components import connected_components_host
 from .ops.encode import UNASSIGNED, EncodeTable, keys_to_matrix
@@ -281,6 +283,7 @@ def _edit_on_card(dev) -> bool:
 def _edit_edges_entries(entries: Entries, n: int, max_distance: int,
                         shard: Tuple[int, int] = (0, 1)
                         ) -> Tuple[np.ndarray, np.ndarray]:
+    from .ops import edit_candidates
     from .ops.edit import (
         EDIT_VERIFY_BATCH,
         edit_verify_indexed,
@@ -315,22 +318,32 @@ def _edit_edges_entries(entries: Entries, n: int, max_distance: int,
             max((int(m.max(initial=0)) for m in matrices), default=0) <= 14
         if on_card:
             # The key matrix goes to the card once: its copy is enqueued now,
-            # so it overlaps candidate generation, and each verification
-            # batch then sends only indices.
+            # the card joins the candidate windows against it, and each
+            # verification batch then sends only indices.
             key_upload = _start_key_upload(
                 pack_nibble_rows(padded) if keys_packed else padded,
                 lengths.astype(np.int32), dev)
     # Hash-run ownership shards candidate generation (sort + join) AND
     # the DP verification to ~1/P per host; the union of the per-host
-    # verified edges is the full edge set (ops/bucket.edit_candidate_pairs).
+    # verified edges is the full edge set (ops/bucket.host_edit_join).
+    # On the card the windows are joined there, against the key matrix
+    # (ops/edit_candidates), once its copy has landed.
     with trace.span("pairs.candidates"):
-        cand_i, cand_j = edit_candidate_pairs(matrices, gidx, max_distance,
-                                              shard=shard)
+        plan = edit_window_plan(matrices, gidx, max_distance, shard)
+        if on_card:
+            # The span times the host's join of the upload thread; a copy
+            # still in flight on the card is waited for by the first
+            # launch that reads it.
+            with trace.span("pairs.key_upload_wait"):
+                keys_dev, lens_dev = key_upload()
+            codes = edit_candidates.join_codes(keys_dev, plan, shard,
+                                               keys_packed)
+        else:
+            codes = host_edit_join(plan, shard)
+        cand_i, cand_j = edit_pairs_of_codes(plan, codes)
     side = "device" if on_card else "host"
     trace.count(f"pairs.candidates.{side}", len(cand_i))
     if not len(cand_i):
-        if key_upload is not None:
-            key_upload()  # a copy still reading ``padded`` ends first
         release(padded)
         return cand_i, cand_j
     keep = np.empty(len(cand_i), dtype=bool)
@@ -339,10 +352,6 @@ def _edit_edges_entries(entries: Entries, n: int, max_distance: int,
         if on_card:
             # Device-resident keys + per-batch index pairs: 8 bytes a pair
             # cross the wire instead of ~2 L (ops/edit.edit_verify_indexed).
-            # The span times the host's join of the upload thread; a copy
-            # still in flight on the card is waited for in the first batch.
-            with trace.span("pairs.key_upload_wait"):
-                keys_dev, lens_dev = key_upload()
             for start in range(0, len(cand_i), batch):
                 sl = slice(start, start + batch)
                 keep[sl] = edit_verify_indexed(

@@ -18,14 +18,19 @@ the current stream and the host goes on to the next batch; the drain
 starts every queued batch's device-to-host copy before it waits on the
 first (:mod:`.transfer`).
 
-The ``--edit`` mode's shifted-segment candidate generation
-(:func:`edit_candidate_pairs`) is host numpy, as in the JAX package; its
-candidates are verified by the banded edit-distance kernel
-(:mod:`.edit_kernels`) through ``engine._edit_edges_entries``.
+The ``--edit`` mode's shifted-segment candidates come in two stages:
+:func:`edit_window_plan` lists every probe and window row (and the
+short-key complete graph), and a join pairs the rows that share a content
+hash.  The host's join (:func:`host_edit_join`, numpy and the C radix
+sort, as in the JAX package) serves the CPU device;
+``engine._edit_edges_entries`` joins on the card, against the key
+matrix resident there, when it runs on one (:mod:`.edit_candidates`).
+Both joins' candidates are verified by the banded edit-distance kernel
+(:mod:`.edit_kernels`) on the card, or the full-row DP on the CPU device.
 """
 
 import os
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -849,6 +854,16 @@ def _live_process_count() -> int:
     return 1
 
 
+def window_seed(salt: int) -> int:
+    """The 64-bit start value of :func:`_hash_window_rows` under ``salt``."""
+    return (0x9E3779B97F4A7C15 * (salt + 0x10001) + 0x85EBCA6B) & _MASK64
+
+
+# Salt of the ``--edit`` join's run ownership under sharding: a row is
+# process ``_mix64(hash ^ EDIT_OWN_SALT) % nproc``'s.
+EDIT_OWN_SALT = 0xD1B54A32D192ED03
+
+
 def _hash_window_rows(window: np.ndarray, salt: int,
                       strong: bool = True) -> np.ndarray:
     """uint64 [n] content hashes of the rows of a [n, w] uint8 window.
@@ -871,7 +886,7 @@ def _hash_window_rows(window: np.ndarray, salt: int,
     (tests/test_native_io.py pins the equivalence).
     """
     n, w = window.shape
-    seed = (0x9E3779B97F4A7C15 * (salt + 0x10001) + 0x85EBCA6B) & _MASK64
+    seed = window_seed(salt)
     if n and w:
         try:
             from ..native.loader import hash_rows_native
@@ -1013,30 +1028,54 @@ def _edit_join_runs(hashes: np.ndarray, gids: np.ndarray,
     return sg2, run_starts, run_ends, n_a, n_b
 
 
-def edit_candidate_pairs(matrices: List[np.ndarray],
-                         group_indices: List[np.ndarray],
-                         max_distance: int,
-                         shard: Tuple[int, int] = (0, 1)
-                         ) -> Tuple[np.ndarray, np.ndarray]:
-    """Candidate (i, j) global-index pairs for the Levenshtein mode.
+class EditSpec(NamedTuple):
+    """One set of hashed window rows of the ``--edit`` join: the window
+    ``matrix[:, w_start:w_start + width]`` of every key of one length
+    group (global ids ``gidx``), hashed under ``salt``; ``side`` 0 is a
+    probe (the key's own pigeonhole segment), 1 a shifted window."""
+    matrix: np.ndarray
+    gidx: np.ndarray
+    w_start: int
+    width: int
+    salt: int
+    side: int
+
+
+class EditPlan(NamedTuple):
+    """What :func:`edit_window_plan` enumerates: the pair codes of the
+    short-key complete graph, every window spec, and the global key
+    count (which sets ``gid_bits``)."""
+    short_codes: np.ndarray
+    specs: List[EditSpec]
+    total_keys: int
+
+    @property
+    def rows(self) -> int:
+        return sum(len(spec.gidx) for spec in self.specs)
+
+    @property
+    def gid_bits(self) -> int:
+        """Low bits of a composite join value that hold the key id."""
+        return max(int(max(self.total_keys - 1, 1)).bit_length(), 1)
+
+
+def edit_window_plan(matrices: List[np.ndarray],
+                     group_indices: List[np.ndarray], max_distance: int,
+                     shard: Tuple[int, int] = (0, 1)) -> EditPlan:
+    """Stage one of the Levenshtein mode's candidate generation: which
+    windows exist.  Both joins (:func:`host_edit_join` here, the card's
+    in :mod:`.edit_candidates`) take this plan.
 
     If lev(a, b) <= d then splitting a into d+1 segments leaves at least
     one segment that occurs *exactly* in b, shifted by at most d positions
     (semantics target: reference distances.h:33-88).  Every key therefore
     emits one PROBE row per segment, keyed by (segment width, segment
     start, content), and one WINDOW row per reachable (width, start,
-    shift) descriptor; a single global sort of 64-bit content hashes joins
-    them — no per-(group, group, shift) Python loops.  Hash collisions can
-    only ADD candidates; the exact banded DP verifies every pair.
-
-    ``shard=(pid, nproc)``: each hash RUN is owned by exactly one host
-    (a salted mix of the run's content hash — computable per row before
-    any grouping, so the sort and join shard to ~1/P each); the union
-    of all shards' pairs equals the unsharded output.
+    shift) descriptor; a join of 64-bit content hashes pairs them.
     """
     d = max_distance
     num_segments = d + 1
-    pid, nproc = shard
+    pid, _ = shard
     total_keys = max((int(g.max()) + 1 for g in group_indices if len(g)),
                      default=0)
     if total_keys > _PAIR_BASE:
@@ -1047,7 +1086,6 @@ def edit_candidate_pairs(matrices: List[np.ndarray],
         raise OverflowError(
             f"too many unique keys for edit-mode pair encoding: "
             f"{total_keys} > {_PAIR_BASE}")
-    pair_parts: List[np.ndarray] = []
 
     # Keys shorter than d+1 have zero-width pigeonhole segments, so the
     # segment-match argument gives no coverage for them.  Any partner
@@ -1060,11 +1098,12 @@ def edit_candidate_pairs(matrices: List[np.ndarray],
             short.extend(int(i) for i in gidx)
     if pid != 0:
         short = []  # the short-key complete graph is host 0's
+    short_codes = np.empty(0, dtype=np.int64)
     if len(short) > 1:
         arr = np.asarray(short, dtype=np.int64)
         ii, jj = np.triu_indices(len(arr), k=1)
-        pair_parts.append(np.minimum(arr[ii], arr[jj]) * _PAIR_BASE +
-                          np.maximum(arr[ii], arr[jj]))
+        short_codes = np.minimum(arr[ii], arr[jj]) * _PAIR_BASE + \
+            np.maximum(arr[ii], arr[jj])
 
     lengths = [m.shape[1] for m in matrices]
     seg_by_length = {length: segment_bounds(length, num_segments)
@@ -1073,9 +1112,7 @@ def edit_candidate_pairs(matrices: List[np.ndarray],
     def salt_of(width: int, seg_start: int) -> int:
         return width * 65536 + seg_start
 
-    # One (w_start, width, salt, side) spec per hashed window; side 0 =
-    # probe (the key's own pigeonhole segment), 1 = shifted window.
-    specs: List[Tuple[np.ndarray, np.ndarray, int, int, int, int]] = []
+    specs: List[EditSpec] = []
     for matrix, gidx in zip(matrices, group_indices):
         n, length = matrix.shape
         if n == 0 or length == 0:
@@ -1085,15 +1122,15 @@ def edit_candidate_pairs(matrices: List[np.ndarray],
             width = seg_end - seg_start
             if width:
                 own_segments.add((width, seg_start))
-                specs.append((matrix, gidx, seg_start, width,
-                              salt_of(width, seg_start), 0))
+                specs.append(EditSpec(matrix, gidx, seg_start, width,
+                                      salt_of(width, seg_start), 0))
         # B-side: every (width, source-segment-start, shifted window
         # start) descriptor reachable from a source length within +-d —
         # EXCEPT descriptors that coincide with one of this matrix's own
         # probe segments: those window rows would duplicate the probe
         # rows byte for byte (same salt, same content), so the join
         # pairs probes against later PROBES in the run instead (the
-        # probe-left enumeration below), halving the row count for the
+        # probe-left enumeration), halving the row count for the
         # dominant same-length shift-0 family and eliminating the
         # guaranteed self-match every key otherwise emits.
         descriptors = set()
@@ -1111,11 +1148,29 @@ def edit_candidate_pairs(matrices: List[np.ndarray],
                                      (width, seg_start) in own_segments):
                         descriptors.add((width, seg_start, w_start))
         for width, seg_start, w_start in sorted(descriptors):
-            specs.append((matrix, gidx, w_start, width,
-                          salt_of(width, seg_start), 1))
+            specs.append(EditSpec(matrix, gidx, w_start, width,
+                                  salt_of(width, seg_start), 1))
+    return EditPlan(short_codes, specs, total_keys)
 
-    total_rows = sum(len(spec[1]) for spec in specs)
-    gid_bits = max(int(max(total_keys - 1, 1)).bit_length(), 1)
+
+def host_edit_join(plan: EditPlan, shard: Tuple[int, int] = (0, 1)
+                   ) -> np.ndarray:
+    """Stage two on the host: the ascending unique pair codes
+    (``i * 2^31 + j``, i < j) of every probe and window row that share a
+    content hash, the short-key graph left out.  Hash collisions can
+    only ADD candidates; the exact banded DP verifies every pair.
+
+    ``shard=(pid, nproc)``: each hash RUN is owned by exactly one host
+    (a salted mix of the run's content hash — computable per row before
+    any grouping, so the sort and join shard to ~1/P each); the union
+    of all shards' pairs equals the unsharded output.
+    """
+    pid, nproc = shard
+    specs = plan.specs
+    pair_parts: List[np.ndarray] = []
+    total_rows = plan.rows
+    trace.count("pairs.edit_rows.host", total_rows)
+    gid_bits = plan.gid_bits
     try:
         from ..native.loader import radix_sort_u64_native
     except ImportError:
@@ -1124,7 +1179,7 @@ def edit_candidate_pairs(matrices: List[np.ndarray],
     # collision (or a truncated-hash run merge below) only ADDS
     # candidate pairs that the exact banded DP discards, so the cheap
     # weak mix is enough.
-    own_salt = np.uint64(0xD1B54A32D192ED03)
+    own_salt = np.uint64(EDIT_OWN_SALT)
     fallback_runs = None
     if radix_sort_u64_native is not None \
             and total_rows >= EDIT_RADIX_MIN_ROWS and gid_bits + 1 <= 30:
@@ -1243,9 +1298,29 @@ def edit_candidate_pairs(matrices: List[np.ndarray],
                 lambda pos: sg2[pos]))
 
     if not pair_parts:
-        return (np.empty(0, dtype=np.int64),) * 2
-    codes = _sorted_unique_codes(np.concatenate(pair_parts))
+        return np.empty(0, dtype=np.int64)
+    return _sorted_unique_codes(np.concatenate(pair_parts))
+
+
+def edit_pairs_of_codes(plan: EditPlan, codes: np.ndarray
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Candidate (i, j) int64 arrays, i < j, ascending by (i, j): a
+    join's sorted unique ``codes`` with the plan's short-key graph."""
+    if len(plan.short_codes):
+        codes = np.union1d(codes, plan.short_codes)
     return _decode_pair_codes(codes)
+
+
+def edit_candidate_pairs(matrices: List[np.ndarray],
+                         group_indices: List[np.ndarray],
+                         max_distance: int,
+                         shard: Tuple[int, int] = (0, 1)
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """Candidate (i, j) global-index pairs for the Levenshtein mode,
+    joined on the host: :func:`edit_window_plan`, then
+    :func:`host_edit_join`."""
+    plan = edit_window_plan(matrices, group_indices, max_distance, shard)
+    return edit_pairs_of_codes(plan, host_edit_join(plan, shard))
 
 
 _PAIR_BASE = 1 << 31

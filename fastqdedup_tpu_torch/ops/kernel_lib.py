@@ -172,6 +172,11 @@ def library() -> ctypes.CDLL:
         lib.fqd_banded_within_edit.restype = i
         lib.fqd_deflate_members.argtypes = [p, i64, p, p, p, p]
         lib.fqd_deflate_members.restype = i
+        lib.fqd_edit_window_hash.argtypes = [
+            p, i64, p, p, i, i64, i, i, i, ctypes.c_uint64, i, p, p, p]
+        lib.fqd_edit_window_hash.restype = i
+        lib.fqd_edit_join.argtypes = [p, i64, p, i, p, p, p, p]
+        lib.fqd_edit_join.restype = i
         lib.fqd_error_string.argtypes = [i]
         lib.fqd_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -73,9 +73,13 @@ def _launch_hamming(dev, length: int, alphabet_size: int,
 
 def _launch_edit(dev, length: int, max_distance: int) -> None:
     """One launch of the edit kernel through each of its entries (paired
-    rows, and index pairs into a key matrix) at the padded key length."""
+    rows, and index pairs into a key matrix) at the padded key length,
+    and of each kernel of the card's candidate join over those keys, the
+    second half copies of the first with one base changed."""
     import torch
 
+    from .ops import edit_candidates
+    from .ops.bucket import edit_window_plan
     from .ops.edit_kernels import (
         banded_within_edit_distance,
         banded_within_edit_distance_indexed,
@@ -84,13 +88,18 @@ def _launch_edit(dev, length: int, max_distance: int) -> None:
     length = max(length, 1)
     l_pad = -(-length // 16) * 16
     rng = np.random.default_rng(0)
-    keys = torch.from_numpy(rng.integers(0, 4, size=(64, l_pad),
-                                         dtype=np.uint8)).to(dev)
+    host = rng.integers(0, 4, size=(64, l_pad), dtype=np.uint8)
+    host[32:] = host[:32]
+    host[32:, length - 1] += 1
+    keys = torch.from_numpy(host).to(dev)
     lens = torch.full((64,), length, dtype=torch.int32, device=dev)
     index = torch.arange(64, dtype=torch.int32, device=dev)
     banded_within_edit_distance(keys, lens, keys, lens, max_distance)
     banded_within_edit_distance_indexed(keys, lens, index, index.flip(0),
                                         max_distance)
+    plan = edit_window_plan([host[:, :length]], [np.arange(64)],
+                            max_distance)
+    edit_candidates.join_codes(keys, plan)
 
 
 def _launch_deflate(dev) -> None:

@@ -288,10 +288,12 @@ def test_edit_edges_match_jax_on_the_indel_profile(monkeypatch, route, d):
 
 
 def test_edit_key_upload_is_enqueued_before_candidates(monkeypatch):
-    """The card's route starts its key-matrix copy, then generates
-    candidates, then takes the device tensors just before the first
-    verification (fastqdedup_tpu/engine.py:240-257)."""
+    """The card's route starts its key-matrix copy, then lists the
+    candidate windows, then takes the device tensors just before the
+    windows are joined against them (ops/edit_candidates) and verified
+    (fastqdedup_tpu/engine.py:240-257 enqueues the copy first too)."""
     from fastqdedup_tpu_torch.ops import edit as edit_ops
+    from fastqdedup_tpu_torch.ops import edit_candidates
 
     monkeypatch.setattr(torch_engine, "_edit_on_card", lambda dev: True)
     log = []
@@ -308,10 +310,13 @@ def test_edit_key_upload_is_enqueued_before_candidates(monkeypatch):
         return take
 
     monkeypatch.setattr(torch_engine, "_start_key_upload", start)
-    _spy(monkeypatch, torch_engine, "edit_candidate_pairs", log)
+    _spy(monkeypatch, torch_engine, "edit_window_plan", log)
+    _spy(monkeypatch, edit_candidates, "join_codes", log)
+    _spy(monkeypatch, torch_engine, "host_edit_join", log)
     _spy(monkeypatch, edit_ops, "edit_verify_indexed", log)
     keys = _indel_keys(40)
     torch_engine._edit_edges_entries(_entries(keys), len(keys), 1)
     order = [entry if isinstance(entry, str) else entry[0] for entry in log]
-    assert order[:4] == ["upload enqueued", "edit_candidate_pairs",
-                         "upload taken", "edit_verify_indexed"]
+    assert order[:5] == ["upload enqueued", "edit_window_plan",
+                         "upload taken", "join_codes",
+                         "edit_verify_indexed"]

@@ -102,7 +102,8 @@ def test_bench_prints_one_line_with_the_jax_package_bytes(tmp_path):
     assert set(line["launches"]) == {
         "bucket_within_packed", "within_tile_packed",
         "rowwise_within_packed", "banded_within_edit_distance",
-        "deflate_members"}
+        "deflate_members", "edit_window_hash", "edit_join_count",
+        "edit_join_write"}
     # The output is deflated on the card only: the CPU run uses the host.
     assert line["launches"]["deflate_members"] == 0
     src = str(tmp_path / "same.fastq.gz")

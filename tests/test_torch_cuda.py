@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from fastqdedup_tpu_torch.ops import edit_candidates as ec
 from fastqdedup_tpu_torch.ops import edit_kernels as ek
 from fastqdedup_tpu_torch.ops import hamming_kernels as hk
 
@@ -443,9 +444,12 @@ def test_warmup_on_card_counts_apart(cuda_device, monkeypatch, capsys):
     from fastqdedup_tpu_torch.ops import deflate_kernels as dk
 
     monkeypatch.setenv("FASTQDEDUP_TORCH_DEVICE", "cuda")
-    before = {**hk.LAUNCHES, **ek.LAUNCHES, **dk.LAUNCHES}
+    def launches():
+        return {**hk.LAUNCHES, **ek.LAUNCHES, **dk.LAUNCHES, **ec.LAUNCHES}
+
+    before = launches()
     warmup.warmup(lengths=(100,), edit_distances=(1, 2))
-    assert {**hk.LAUNCHES, **ek.LAUNCHES, **dk.LAUNCHES} == before
+    assert launches() == before
     assert set(kernel_lib.WARMUP_LAUNCHES) == set(before)
     assert "kernel library load" in capsys.readouterr().err
     monkeypatch.setattr(warmup, "_prewarmed_geometries", set())
@@ -460,14 +464,14 @@ def test_warmup_on_card_counts_apart(cuda_device, monkeypatch, capsys):
                 if s.name.startswith("warmup.")] == [
             "warmup.context", "warmup.library", "warmup.launches"]
         assert warmup.prewarm_async(100, 5, 1, edit) is None
-    assert {**hk.LAUNCHES, **ek.LAUNCHES, **dk.LAUNCHES} == before
+    assert launches() == before
     # The card writer's thread: one deflate launch, counted as warm-up.
     monkeypatch.setattr(warmup, "_deflate_prewarmed", False)
     warm = kernel_lib.WARMUP_LAUNCHES["deflate_members"]
     warmup.prewarm_deflate_async().join(timeout=120)
     assert kernel_lib.WARMUP_LAUNCHES["deflate_members"] == warm + 1
     assert warmup.prewarm_deflate_async() is None
-    assert {**hk.LAUNCHES, **ek.LAUNCHES, **dk.LAUNCHES} == before
+    assert launches() == before
 
 
 # --------------------------------------------------------------------- #
@@ -709,8 +713,8 @@ def test_edit_key_upload_matches_cpu(cuda_device, monkeypatch):
 
 def test_edit_key_upload_wait_is_one_span_a_call(cuda_device, monkeypatch):
     """On the card each call of the edit route waits for its key matrix
-    once, inside its verification: one ``pairs.key_upload_wait`` span a
-    call, under ``pairs.edit_verify``."""
+    once, before the card joins its windows against it: one
+    ``pairs.key_upload_wait`` span a call, under ``pairs.candidates``."""
     from torch.profiler import ProfilerActivity, profile
 
     from fastqdedup_tpu_torch import engine
@@ -729,7 +733,87 @@ def test_edit_key_upload_wait_is_one_span_a_call(cuda_device, monkeypatch):
     by_id = {s.id: s for s in spans}
     waits = [s for s in spans if s.name == "pairs.key_upload_wait"]
     assert len(waits) == 2
-    assert all(by_id[s.parent].name == "pairs.edit_verify" for s in waits)
+    assert all(by_id[s.parent].name == "pairs.candidates" for s in waits)
+
+
+# The edit route's candidate join (csrc/edit_candidates.cu)
+
+
+@pytest.mark.parametrize("kind,d,shard", [
+    ("cell", 1, (0, 1)), ("cell", 2, (0, 1)), ("indel", 1, (0, 1)),
+    ("indel", 2, (0, 1)), ("indel", 1, (0, 3)), ("indel", 1, (2, 3)),
+])
+def test_edit_join_kernels_match_plain(cuda_device, kind, d, shard):
+    """Each kernel of the card's candidate join against its plain version
+    on the same input: the window hash (composites and kept rows), and
+    both join passes over the sorted composites."""
+    import chip_smoke
+
+    entries, padded = chip_smoke.edit_join_keys(60 + d, kind, 2000)
+    plan = chip_smoke.edit_join_plan(entries, d, shard)
+    keys = torch.from_numpy(padded)
+    got = chip_smoke.edit_join_steps(keys.to(cuda_device), plan, shard)
+    want = chip_smoke.edit_join_steps(keys, plan, shard)
+    torch.cuda.synchronize()
+    assert torch.equal(got["values"].cpu(), want["values"])
+    assert int(got["kept"]) == int(want["kept"]) > 0
+    ordered = got["sorted"]
+    counts = ec.join_count(ordered, got["kept"], plan.gid_bits)
+    assert torch.equal(counts.cpu(), want["counts"])
+    ends = torch.cumsum(counts, 0)
+    codes = ec.join_write(ordered, got["kept"], plan.gid_bits, ends,
+                          int(ends[-1]))
+    assert torch.equal(codes.cpu(), want["codes"])
+    assert len(want["codes"]) > 100
+
+
+@pytest.mark.parametrize("kind,d,shard", [
+    ("cell", 1, (0, 1)), ("indel", 1, (0, 1)), ("indel", 2, (1, 3))])
+def test_edit_join_kernels_match_plain_on_packed_keys(cuda_device, kind, d,
+                                                      shard):
+    """The window hash over a nibble-packed key matrix
+    (``engine.PACK_KEY_MATRIX``) against its plain version, and the card
+    join over it against the host join."""
+    import chip_smoke
+    from fastqdedup_tpu_torch.ops.edit import pack_nibble_rows
+
+    entries, padded = chip_smoke.dense_join_keys(
+        *chip_smoke.edit_join_keys(80 + d, kind, 2000))
+    plan = chip_smoke.edit_join_plan(entries, d, shard)
+    keys = torch.from_numpy(pack_nibble_rows(padded))
+    got = chip_smoke.edit_join_steps(keys.to(cuda_device), plan, shard, True)
+    want = chip_smoke.edit_join_steps(keys, plan, shard, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got["values"].cpu(), want["values"])
+    assert int(got["kept"]) == int(want["kept"]) > 0
+    card = ec.join_codes(keys.to(cuda_device), plan, shard, packed=True)
+    want_codes = chip_smoke.host_join_codes(plan, shard)
+    assert card.tobytes() == want_codes.tobytes()
+    assert len(want_codes) > 100
+
+
+@pytest.mark.parametrize("kind,molecules,d", [
+    ("cell", 400_000, 1), ("indel", 100_000, 1), ("indel", 20_000, 2)])
+def test_edit_card_join_equals_host_join(cuda_device, kind, molecules, d):
+    """The card's join against the host's, byte for byte: at the
+    benchmark cell's shape (2M ``default`` reads: about 620,000 keys, 2.5M
+    window rows, which the host joins through its composite branch) and
+    on keys with indels."""
+    import chip_smoke
+    from fastqdedup_tpu_torch.ops import bucket
+
+    entries, padded = chip_smoke.edit_join_keys(70, kind, molecules)
+    plan = chip_smoke.edit_join_plan(entries, d)
+    if kind == "cell":
+        assert plan.rows >= bucket.EDIT_RADIX_MIN_ROWS
+    before = dict(ec.LAUNCHES)
+    got = ec.join_codes(torch.from_numpy(padded).to(cuda_device), plan)
+    want = chip_smoke.host_join_codes(plan)
+    assert got.dtype == want.dtype == np.int64
+    assert got.tobytes() == want.tobytes()
+    assert len(want) > 10_000
+    for name in ("edit_window_hash", "edit_join_count", "edit_join_write"):
+        assert ec.LAUNCHES[name] == before[name] + 1
 
 
 # The deflate kernel (csrc/deflate.cu) and the card writer

@@ -58,7 +58,7 @@ PARENTS = {
     "pairs.pad": {"pairs.edges"},
     "pairs.candidates": {"pairs.edges"},
     "pairs.edit_verify": {"pairs.edges"},
-    "pairs.key_upload_wait": {"pairs.edit_verify"},
+    "pairs.key_upload_wait": {"pairs.candidates"},
     "pass2.dissect": {"job"},
     "dissect.singletons": {"pass2.dissect"},
     "dissect.two_member": {"pass2.dissect"},
